@@ -1,8 +1,7 @@
 """Per-stage breakdown of the config-3 frame (64^3 sim -> mesher -> render).
 
-The r4 frame was 16.7 s with the render dominating (VERDICT r4 weak #3);
-this isolates substep / mesher / accel build / render so the DDA work is
-measured, not guessed. Run on the chip: ``python benchmarks/prof_e2e.py``.
+Isolates substep / mesher / accel build / render so the DDA work is
+measured, not guessed. Run on the GPU: ``python benchmarks/prof_e2e.py``.
 """
 import os
 import sys
@@ -15,7 +14,6 @@ for p in (_ROOT, os.path.join(_ROOT, "benchmarks")):
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from libfluid_tpu.config import (
     MesherConfig, RenderConfig, SimConfig, TransferScheme,
@@ -30,18 +28,13 @@ from libfluid_tpu.sim import new_state, seed_box, substep
 RES = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 
 
-def sync(x):
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    np.asarray(leaf[tuple(0 for _ in leaf.shape)])
-
-
 def timeit(f, *args, n=2):
     out = f(*args)
-    sync(out)
+    jax.block_until_ready(out)
     t0 = time.time()
     for _ in range(n):
         out = f(*args)
-    sync(out)
+    jax.block_until_ready(out)
     return (time.time() - t0) / n, out
 
 
@@ -65,7 +58,7 @@ rcfg = RenderConfig(
 stepper = jax.jit(lambda s: substep(s, cfg, 0.02)[0])
 for _ in range(3):
     state = stepper(state)
-sync(state.position)
+jax.block_until_ready(state.position)
 
 dt_step, state2 = timeit(stepper, state)
 print(f"substep            {dt_step*1e3:8.0f} ms", flush=True)

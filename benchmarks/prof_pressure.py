@@ -1,16 +1,19 @@
 """Pressure-solve component timing at 128^3: apply_level formulations,
 V-cycle settings, CG totals."""
+import os
 import sys
 import jax, jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo/benchmarks")
-from timing import timeit
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from libfluid_tpu.cache import enable_persistent_cache
+from libfluid_tpu.profiling import timeit
 
 from libfluid_tpu.config import SimConfig, TransferScheme, SolverConfig
 from libfluid_tpu.sim import new_state, seed_box, substep
 from libfluid_tpu.sim import multigrid, pressure as pressure_mod
 from libfluid_tpu import grids
 
+enable_persistent_cache()
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 cfg = SimConfig(grid_size=(N,)*3, gravity=(0.,-981.,0.), particle_capacity=1<<21,
                 scheme=TransferScheme.APIC, has_obstacles=False)

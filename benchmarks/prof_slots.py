@@ -1,6 +1,5 @@
 """Micro-breakdown of the binning + slot-grid build at 128^3 / 2M particles.
 
-slots.build + sort_by_cell are ~50% of the 128^3 substep (PROF_r03_stages).
 This isolates each sub-cost so layout work targets the real bottleneck.
 Run: python benchmarks/prof_slots.py [grid_n]
 """
@@ -8,19 +7,20 @@ import os
 import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-for p in (_ROOT, os.path.join(_ROOT, "benchmarks")):
-    if p not in sys.path:
-        sys.path.insert(0, p)
+if _ROOT not in sys.path:
+    sys.path.insert(0, _ROOT)
 
 import jax
 import jax.numpy as jnp
 
-from timing import timeit
+from libfluid_tpu.cache import enable_persistent_cache
+from libfluid_tpu.profiling import timeit
 
 from libfluid_tpu.config import SimConfig, TransferScheme
 from libfluid_tpu.sim import new_state, seed_box
 from libfluid_tpu.sim import binning as binning_mod, slots as slots_mod
 
+enable_persistent_cache()
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 cfg = SimConfig(grid_size=(N, N, N), gravity=(0., -981., 0.),
                 particle_capacity=1 << 21 if N >= 128 else 1 << 18,

@@ -8,13 +8,13 @@ import os
 import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-for p in (_ROOT, os.path.join(_ROOT, "benchmarks")):
-    if p not in sys.path:
-        sys.path.insert(0, p)
+if _ROOT not in sys.path:
+    sys.path.insert(0, _ROOT)
 
 import jax
 
-from timing import timeit
+from libfluid_tpu.cache import enable_persistent_cache
+from libfluid_tpu.profiling import timeit
 
 from libfluid_tpu.config import SimConfig, TransferScheme
 from libfluid_tpu.sim import new_state, seed_box, substep
@@ -24,6 +24,7 @@ from libfluid_tpu.sim import correction as correction_mod, collisions as collisi
 from libfluid_tpu.sim import extrapolation as extrapolation_mod
 from libfluid_tpu import grids
 
+enable_persistent_cache()
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 cfg = SimConfig(grid_size=(N, N, N), gravity=(0., -981., 0.),
                 particle_capacity=1 << 21 if N >= 128 else 1 << 18,

@@ -2,7 +2,7 @@
 
 Times one traversal of a primary-ray wavefront and one of a diffuse-bounce
 wavefront, and reports the iteration count the lockstep loop actually ran
-(the whole wavefront pays the worst ray). Run on the chip.
+(the whole wavefront pays the worst ray). Run on the GPU.
 """
 import os
 import sys
@@ -15,7 +15,6 @@ for p in (_ROOT, os.path.join(_ROOT, "benchmarks")):
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from libfluid_tpu.config import MesherConfig, SimConfig, TransferScheme
 from libfluid_tpu.mesher.marching_cubes import generate_mesh
@@ -26,11 +25,6 @@ from libfluid_tpu.sim import new_state, seed_box, substep
 
 RES = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 LANES = 1 << 16
-
-
-def sync(x):
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    np.asarray(leaf[tuple(0 for _ in leaf.shape)])
 
 
 cfg = SimConfig(
@@ -70,12 +64,12 @@ def run(o, d):
 
 fn = jax.jit(run)
 out = fn(o, d)
-sync(out[0])
+jax.block_until_ready(out[0])
 for name in ("primary",):
     t0 = time.time()
     for _ in range(5):
         out = fn(o, d)
-    sync(out[0])
+    jax.block_until_ready(out[0])
     print(f"{name}: {(time.time()-t0)/5*1e3:.1f} ms / {LANES} rays", flush=True)
 
 hit_t, hit_id = out[0], out[1]
@@ -89,9 +83,9 @@ nrm = jax.random.normal(key, (LANES, 3))
 nrm = nrm / jnp.linalg.norm(nrm, axis=-1, keepdims=True)
 o2 = hitp + nrm * 1e-3
 out2 = fn(o2, nrm)
-sync(out2[0])
+jax.block_until_ready(out2[0])
 t0 = time.time()
 for _ in range(5):
     out2 = fn(o2, nrm)
-sync(out2[0])
+jax.block_until_ready(out2[0])
 print(f"diffuse: {(time.time()-t0)/5*1e3:.1f} ms / {LANES} rays", flush=True)

@@ -1,15 +1,15 @@
-"""libfluid_tpu — a TPU-native differentiable fluid-simulation and rendering framework.
+"""libfluid_tpu — a differentiable fluid-simulation and rendering framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability set of lukedan/libfluid
+Built from scratch in JAX/XLA with the capability set of lukedan/libfluid
 (PIC/FLIP/APIC particle-in-cell liquid simulation on a MAC grid, pressure projection,
 marching-cubes surface meshing, mesh voxelization, and path tracing / BDPT), but
-re-architected TPU-first:
+re-architected for accelerators:
 
 - the mutable ``simulation`` object of the reference becomes a functional core:
   a :class:`~libfluid_tpu.sim.state.SimState` pytree and a pure
   ``step(state, cfg) -> state`` transition,
 - particle-grid transfers are batched scatter/gather ops (differentiable by
-  construction, with Pallas fused variants for the hot paths),
+  construction),
 - the serial MIC(0)-PCG pressure solver becomes a matrix-free, order-free
   preconditioned CG over dense grid tiles (shardable with halo exchange),
 - the renderer is a wavefront path tracer over ray batches,

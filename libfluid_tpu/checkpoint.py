@@ -3,7 +3,7 @@
 The reference has no simulation checkpointing; its nearest analogues are the
 Maya ``grid_node`` per-frame particle cache (``grid_node.cpp:350-366``) and the
 points.txt / mesh.obj export-import round trip (``point_cloud.h:15-37``,
-``mesh.h:56-99``). For a TPU framework, restart-from-checkpoint is the failure
+``mesh.h:56-99``). For an accelerator framework, restart-from-checkpoint is the failure
 -recovery story (SURVEY.md §5), so this module checkpoints the *complete* state
 pytree — particles, grid, sources, RNG key, sim time — not just positions.
 

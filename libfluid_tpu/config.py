@@ -41,19 +41,17 @@ class CellType:
 class SolverConfig:
     """Pressure-solver tunables (reference ``pressure_solver.h:38-42``).
 
-    The reference uses a serial MIC(0)-preconditioned CG; on TPU the
-    preconditioner is diagonal (order-free, shardable), so iteration counts
-    are higher for the same tolerance — ``max_iterations`` defaults higher.
+    The reference uses a serial MIC(0)-preconditioned CG; here the
+    preconditioner is an order-free, shardable geometric multigrid V-cycle
+    (or plain Jacobi).
     """
 
     tolerance: float = 1e-6  # max-norm residual threshold (ref pressure_solver.h:41)
     max_iterations: int = 200  # ref pressure_solver.h:42
     preconditioner: str = "mg"  # "mg" (geometric V-cycle) or "jacobi"
     # dtype the V-cycle preconditioner runs in (the outer CG iteration stays
-    # float32 either way; tolerance semantics are unchanged). bfloat16 was
-    # measured a net LOSS on v5e at 128^3 — iterations 36 -> 46 and wall
-    # 158 -> 175 ms (the (16,128) bf16 tiling + casts eat the bandwidth
-    # saving) — so float32 is the default; the knob stays for other shapes.
+    # float32 either way; tolerance semantics are unchanged). bfloat16 halves
+    # the V-cycle's bytes but costs CG iterations; float32 is the default.
     preconditioner_dtype: str = "float32"  # "float32" | "bfloat16"
 
 
@@ -88,8 +86,7 @@ class SimConfig:
     max_neighbors_per_cell: int = 12  # cell-slot capacity; particles past
     # it ("overflow") are completed EXACTLY by a compacted scatter pass in
     # p2g_slots, so K trades dense-pass cost against compaction load rather
-    # than correctness. 12 keeps the Pallas P2G x-plane blocks inside VMEM at
-    # 128^3 (K=16 spills)
+    # than correctness
     p2g_overflow_capacity: int = 4096  # compaction buffer for that pass.
     # Dam-break impacts transiently pile ~5% of particles past 16/cell; up to
     # this many are merged exactly. Beyond it the face average degrades to a
@@ -100,12 +97,11 @@ class SimConfig:
     # springs pass. Defaults to max_neighbors_per_cell so EVERY slotted
     # particle is in the dense pass (the reference's neighborhood loop has no
     # cap at all, simulation.cpp:562-610) — the Newton's-third-law kernel
-    # (kernels._correction_kernel) absorbs the KC^2 growth. Particles past it
+    # (kernels.correction_springs_triton) absorbs the KC^2 growth. Particles past it
     # (rank >= correction_capacity, i.e. slot overflow only at the default)
     # get their spring from a compacted per-particle gather pass against the
-    # resident field — up to this many per substep (the gather pass costs
-    # ~5 ms/1k rows on TPU at 128^3, so the cap is deliberately tight now
-    # that only >12-per-cell compression reaches it):
+    # resident field — up to this many per substep (only >12-per-cell
+    # compression reaches it):
     correction_overflow_capacity: int = 4096
     # z-shard particle-exchange ring-buffer capacity per direction (rows a
     # device can send up/down per substep). 0 = auto (half the device block).

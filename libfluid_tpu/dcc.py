@@ -5,7 +5,7 @@ is *content-pipeline integration*: dependency-graph nodes that lazily recompute
 simulation frames with caching, mesh the particles, voxelize obstacle meshes,
 and load exported point clouds (``grid_node.cpp``, ``mesher_node.cpp``,
 ``voxelizer_node.cpp``, ``point_cloud_loader_node.cpp``), plus commands that
-wire them together (``create_simulation_grid.cpp:23-96``). A TPU framework has
+wire them together (``create_simulation_grid.cpp:23-96``). This framework has
 no Maya process; the equivalent capability is this module — the same node
 semantics (pull-based evaluation, per-frame particle caching, attribute-change
 invalidation ``grid_node.cpp:377-383``) exposed as plain Python objects any DCC

@@ -2,7 +2,7 @@
 
 Replaces the reference's ``mac_grid`` (``mac_grid.h``/``mac_grid.cpp``) which
 stores per-cell *positive-face* velocities in an array-of-structs grid. Here
-the TPU-native layout is three standard face-centered arrays:
+the layout is three standard face-centered arrays:
 
     u: (nx+1, ny, nz)   x-face normal velocities; u[i] is the face between
                         cells i-1 and i (u[0]/u[nx] are the domain walls)

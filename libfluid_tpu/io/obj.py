@@ -2,7 +2,7 @@
 
 Takes the mesher's fixed-capacity triangle soup; vertices are deduplicated
 host-side (the reference dedups during extraction with rolling edge caches,
-``mesher.cpp:394-407`` — a serial structure that has no place on TPU).
+``mesher.cpp:394-407`` — a serial structure that has no place on an accelerator).
 
 Face lines follow the reference exactly: plain ``f i j k`` without
 attributes, ``f i/i`` with uvs only, ``f i/i/i`` (or ``f i//i``) with

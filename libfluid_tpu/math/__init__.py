@@ -2,8 +2,8 @@
 
 Replaces the reference's L1 math layer (``include/fluid/math/``). There is no
 vector class: everything is plain ``jnp`` arrays with a trailing axis of size 3,
-batched over leading axes — the TPU-native replacement for ``vec3d`` loops and
-the AVX ``vec_simd.h`` utilities (XLA vectorizes onto VPU lanes for free).
+batched over leading axes — the replacement for ``vec3d`` loops and the AVX
+``vec_simd.h`` utilities (XLA vectorizes them).
 """
 
 from libfluid_tpu.math.interp import lerp, bilerp, trilerp

@@ -7,7 +7,17 @@ composition (``mat.h:300-330``).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# float32 products on a GPU may run in TF32 (~3 decimal digits), which moves
+# hit points by ~1e-3 relative; these 3x3 / 3x4 transforms are tiny, so
+# full precision costs nothing
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 
 def scale(s):
@@ -32,7 +42,7 @@ def rotate_euler(angles):
     ry = ry.at[0, 0].set(cy).at[0, 2].set(sy).at[2, 0].set(-sy).at[2, 2].set(cy)
     rz = jnp.eye(3)
     rz = rz.at[0, 0].set(cz).at[0, 1].set(-sz).at[1, 0].set(sz).at[1, 1].set(cz)
-    return rx @ ry @ rz
+    return _mm(_mm(rx, ry), rz)
 
 
 def scale_rotate_translate(s, euler, t):
@@ -44,15 +54,15 @@ def scale_rotate_translate(s, euler, t):
 
 def apply_point(m, p):
     """Apply a (3,4) transform to points with trailing axis 3."""
-    return p @ m[:, :3].T + m[:, 3]
+    return _mm(p, m[:, :3].T) + m[:, 3]
 
 
 def apply_vector(m, v):
     """Apply the linear part of a (3,4) transform to direction vectors."""
-    return v @ m[:, :3].T
+    return _mm(v, m[:, :3].T)
 
 
 def inverse(m):
     """Inverse of a (3,4) affine transform as another (3,4) transform."""
     rinv = jnp.linalg.inv(m[:, :3])
-    return jnp.concatenate([rinv, (-rinv @ m[:, 3]).reshape(3, 1)], axis=-1)
+    return jnp.concatenate([rinv, _mm(-rinv, m[:, 3]).reshape(3, 1)], axis=-1)

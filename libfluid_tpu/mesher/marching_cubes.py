@@ -1,7 +1,7 @@
 """Marching cubes as a batched, differentiable table-lookup kernel.
 
 Reference ``mesher::_marching_cubes`` (``mesher.cpp:400-515``): serial sweep
-with rolling per-layer edge-midpoint caches for vertex dedup. The TPU version
+with rolling per-layer edge-midpoint caches for vertex dedup. This version
 drops the inherently serial dedup structure and emits an indexed *triangle
 soup* with fixed capacity:
 
@@ -46,9 +46,8 @@ class MeshBuffers(NamedTuple):
 
 
 # cells per z-block: bounds the block temporaries (~a dozen (12, Cb) f32
-# arrays) while keeping the scan short — the old one-z-slab scan ran 8
-# scalar-index GATHERS per corner per slab (the dominant cost: 310 of the
-# 341 ms mesher stage at 64^3) where a block uses pure slices
+# arrays) while keeping the scan short; a block reads its corners with
+# pure slices instead of 8 scalar-index gathers per corner per z-slab
 _BLOCK_CELLS = 1 << 20
 
 

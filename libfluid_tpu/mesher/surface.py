@@ -6,33 +6,20 @@ gathered through a spatial hash and averaged with the kernel
 w = max(0, 1 - d^2/extent^2)^3 (``mesher.cpp:325-331``); the signed value is
 |x_avg - x_node| - r_avg, or +1 where no particles are near (outside).
 
-TPU-native formulation: the per-node gather (hash + OpenMP over z-slices)
-becomes a per-particle *scatter* of (w, w*pos, w*r) to the
-(2*cell_radius)^3 nodes inside its kernel support — batched scatter-adds,
-sorted-segment-reduced by XLA, differentiable w.r.t. particle positions by
-construction. The result is bit-for-bit the same weighted average.
+Here the per-node gather (hash + OpenMP over z-slices) becomes a
+per-particle *scatter* of (w, w*pos, w*r) to the (2*cell_radius)^3 nodes
+inside its kernel support — batched scatter-adds, differentiable w.r.t.
+particle positions by construction. The result is the same weighted
+average.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from libfluid_tpu.config import MesherConfig
-
-# slots per mesher cell for the Pallas path: sim seeding is ~1 particle per
-# 0.5-cell mesher cell; 8 covers 8x local compression, and overflow only
-# perturbs the (visual) surface estimate, never mass
-MESH_SLOT_K = 8
-
-
-def _pallas_ok(cfg: MesherConfig) -> bool:
-    return jax.default_backend() == "tpu"
 
 
 def sample_surface(
@@ -41,26 +28,9 @@ def sample_surface(
     cfg: MesherConfig,
     particle_radius: float | None = None,
 ) -> jnp.ndarray:
-    """Sampled signed surface function on the (nx+1, ny+1, nz+1) node grid.
-
-    On TPU the (2*cr)^3-offset scatter loop below (512 scatter-adds at the
-    testbed's extent-2.0/cell-0.5 config — the round-1 bottleneck) is
-    replaced by a mesher-grid slot scatter (ONE row scatter) + a fused
-    Pallas node pass (:func:`_sample_surface_pallas`); gradients route
-    through this jnp oracle via ``custom_vjp``."""
-    r = cfg.particle_radius if particle_radius is None else particle_radius
-    if _pallas_ok(cfg):
-        return _sample_surface_tpu(position, active, cfg, float(r))
-    return _sample_surface_jnp(position, active, cfg, r)
-
-
-def _sample_surface_jnp(
-    position: jnp.ndarray,
-    active: jnp.ndarray,
-    cfg: MesherConfig,
-    particle_radius: float | None = None,
-) -> jnp.ndarray:
-    """The scatter-based oracle (CPU/tests/VJP path)."""
+    """Sampled signed surface function on the (nx+1, ny+1, nz+1) node grid,
+    as (2*cr)^3 exact scatter-adds (512 at the testbed's extent-2.0 /
+    cell-0.5 config)."""
     r = cfg.particle_radius if particle_radius is None else particle_radius
     nx, ny, nz = cfg.grid_size
     nodes = (nx + 1, ny + 1, nz + 1)
@@ -112,209 +82,3 @@ def _sample_surface_jnp(
     )
     value = jnp.sqrt(jnp.sum(diff * diff, axis=-1) + 1e-30) - r
     return jnp.where(has, value, 1.0)
-
-
-def _pad_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
-
-def _build_mesh_slots(position, active, cfg: MesherConfig, k: int):
-    """Bin particles into a (4, K, mx+1, PY, PZ) mesher-cell slot grid
-    (cols: xyz + mask). One argsort + one (N, 4) row scatter.
-
-    PY/PZ round the node counts up to the (8, 128) vector tile so the node
-    pass's dynamic lane rolls are aligned (Mosaic rejects unaligned
-    ``dynamic_rotate``); padding cells are empty (mask 0) and positions are
-    absolute, so wrap-around contributions self-mask by distance."""
-    mx, my, mz = cfg.grid_size
-    dims = jnp.asarray([mx, my, mz], jnp.int32)
-    pdims = (mx + 1, _pad_up(my + 1, 8), _pad_up(mz + 1, 128))
-    num_cells = pdims[0] * pdims[1] * pdims[2]
-    n = position.shape[0]
-
-    g = (position - jnp.asarray(cfg.grid_offset, position.dtype)) / cfg.cell_size
-    idx3 = jnp.floor(g).astype(jnp.int32)
-    inb = jnp.all((idx3 >= 0) & (idx3 < dims), axis=-1) & active
-    c3 = jnp.clip(idx3, 0, dims - 1)
-    cell = (c3[:, 0] * pdims[1] + c3[:, 1]) * pdims[2] + c3[:, 2]
-    cell = jnp.where(inb, cell, num_cells)
-
-    order = jnp.argsort(cell)
-    cell_s = cell[order]
-    counts = jax.ops.segment_sum(
-        jnp.ones_like(cell, jnp.int32), cell, num_segments=num_cells + 1
-    )[:num_cells]
-    start = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32), jnp.cumsum(counts, dtype=jnp.int32)[:-1]]
-    )
-    rank = jnp.arange(n, dtype=jnp.int32) - start[jnp.minimum(cell_s, num_cells - 1)]
-    ok = (cell_s < num_cells) & (rank < k)
-    slot = jnp.where(ok, rank * num_cells + cell_s, num_cells * k)
-
-    payload = jnp.concatenate(
-        [position[order], jnp.ones((n, 1), position.dtype)], axis=1
-    )  # (N, 4)
-    grid = jnp.zeros((num_cells * k + 1, 4), position.dtype)
-    grid = grid.at[slot].set(payload, mode="drop", unique_indices=True)
-    data = grid[:-1].T.reshape(4, k, *pdims)
-    overflow = jnp.sum(((cell_s < num_cells) & (rank >= k)).astype(jnp.int32))
-    return data, overflow
-
-
-def _surface_kernel(
-    occ_ref,  # (P,) int32 scalar prefetch: any particle near node plane i
-    *refs,
-    k: int,
-    cr: int,
-    h: float,
-    offset: tuple,
-    ext2: float,
-    radius: float,
-):
-    """Zhu-Bridson node pass for one x-plane of nodes.
-
-    2*cr clamped payload x-blocks; (dy, dz) taps are DYNAMIC lane rolls
-    inside fori loops (512 unrolled offsets would take Mosaic minutes to
-    compile). Positions are absolute, so wrapped-in rolls land farther than
-    `extent` and self-mask through the kernel support — no edge masks.
-    """
-    nblk = 2 * cr
-    blk_refs = refs[:nblk]
-    out_ref = refs[nblk]
-    i = pl.program_id(0)
-    nplanes = pl.num_programs(0)
-
-    @pl.when(occ_ref[i] == 0)
-    def _():
-        out_ref[:] = jnp.full_like(out_ref, 1.0)
-
-    @pl.when(occ_ref[i] > 0)
-    def _():
-        pn, pz = out_ref.shape[-2], out_ref.shape[-1]
-        node_x = offset[0] + i.astype(jnp.float32) * h
-        ny_f = jax.lax.broadcasted_iota(
-            jnp.int32, (1, pn, pz), 1
-        ).astype(jnp.float32) * h + offset[1]
-        nz_f = jax.lax.broadcasted_iota(
-            jnp.int32, (1, pn, pz), 2
-        ).astype(jnp.float32) * h + offset[2]
-
-        w_acc = jnp.zeros((pn, pz), jnp.float32)
-        wx_acc = jnp.zeros((3, pn, pz), jnp.float32)
-
-        for b, dx in enumerate(range(-cr, cr)):
-            valid = jnp.logical_and(i + dx >= 0, i + dx < nplanes).astype(
-                jnp.float32
-            )
-            win = blk_refs[b][:, 0]  # (4K, pn, pz)
-            pos_b = win[: 3 * k].reshape(3, k, pn, pz)
-            mask_b = win[3 * k :] * valid  # (K, pn, pz)
-
-            def dy_body(ty, acc):
-                w_acc, wx_acc = acc
-                # work[n] = arr[n + dy], dy in [-cr, cr-1]: roll by -dy
-                dy = ty - cr
-                pos_y = pltpu.roll(pos_b, (-dy) % pn, axis=2)
-                mask_y = pltpu.roll(mask_b, (-dy) % pn, axis=1)
-
-                def dz_body(tz, acc):
-                    w_acc, wx_acc = acc
-                    dz = tz - cr
-                    pos_r = pltpu.roll(pos_y, (-dz) % pz, axis=3)
-                    mask_r = pltpu.roll(mask_y, (-dz) % pz, axis=2)
-                    d2 = (
-                        (pos_r[0] - node_x) ** 2
-                        + (pos_r[1] - ny_f) ** 2
-                        + (pos_r[2] - nz_f) ** 2
-                    ) * (1.0 / ext2)
-                    kl = 1.0 - d2
-                    w = jnp.where(kl > 0.0, kl * kl * kl, 0.0) * mask_r
-                    w_acc = w_acc + jnp.sum(w, axis=0)
-                    wx_acc = wx_acc + jnp.stack(
-                        [jnp.sum(w * pos_r[c], axis=0) for c in range(3)]
-                    )
-                    return w_acc, wx_acc
-
-                return jax.lax.fori_loop(0, 2 * cr, dz_body, (w_acc, wx_acc))
-
-            w_acc, wx_acc = jax.lax.fori_loop(0, 2 * cr, dy_body, (w_acc, wx_acc))
-
-        has = w_acc > 0.0
-        inv = 1.0 / jnp.maximum(w_acc, 1e-30)
-        dx0 = wx_acc[0] * inv - node_x
-        dy0 = wx_acc[1] * inv - ny_f[0]
-        dz0 = wx_acc[2] * inv - nz_f[0]
-        value = jnp.sqrt(dx0 * dx0 + dy0 * dy0 + dz0 * dz0 + 1e-30) - radius
-        out_ref[0] = jnp.where(has, value, 1.0)
-
-
-def _sample_surface_pallas(data, cfg: MesherConfig, radius: float):
-    """(4, K, PX, PY, PZ) slot payload -> (PX, PY, PZ) signed values (the
-    caller crops the alignment padding)."""
-    _, k, px, py, pz = data.shape
-    h = cfg.cell_size
-    cr = max(math.ceil(cfg.particle_extent / h), 1)
-
-    payload = data.reshape(4 * k, px, py, pz)
-    occ_plane = jnp.sum(data[3], axis=(0, 2, 3))  # (px,) particles per plane
-    p = jnp.pad(occ_plane, (cr, cr))
-    acc = jnp.zeros((px,), occ_plane.dtype)
-    for d in range(2 * cr + 1):
-        acc = acc + p[d : d + px]
-    occ = (acc > 0).astype(jnp.int32)
-
-    def xblock(dx):
-        return pl.BlockSpec(
-            (4 * k, 1, py, pz),
-            lambda i, *_: (0, jnp.clip(i + dx, 0, px - 1), 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(px,),
-        in_specs=[xblock(dx) for dx in range(-cr, cr)],
-        out_specs=pl.BlockSpec(
-            (1, py, pz), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    return pl.pallas_call(
-        functools.partial(
-            _surface_kernel,
-            k=k,
-            cr=cr,
-            h=float(h),
-            offset=tuple(float(o) for o in cfg.grid_offset),
-            ext2=float(cfg.particle_extent) ** 2,
-            radius=float(radius),
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((px, py, pz), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-    )(occ, *([payload] * (2 * cr)))
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def _sample_surface_tpu(position, active, cfg: MesherConfig, radius: float):
-    data, _overflow = _build_mesh_slots(position, active, cfg, MESH_SLOT_K)
-    out = _sample_surface_pallas(data, cfg, radius)
-    mx, my, mz = cfg.grid_size
-    return out[: mx + 1, : my + 1, : mz + 1]
-
-
-def _surface_fwd(position, active, cfg, radius):
-    return _sample_surface_tpu(position, active, cfg, radius), (position, active)
-
-
-def _surface_bwd(cfg, radius, saved, g):
-    position, active = saved
-    _, vjp = jax.vjp(
-        lambda p: _sample_surface_jnp(p, active, cfg, radius), position
-    )
-    (dp,) = vjp(g)
-    return dp, None
-
-
-_sample_surface_tpu.defvjp(_surface_fwd, _surface_bwd)

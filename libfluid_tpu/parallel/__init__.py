@@ -1,10 +1,11 @@
 """Multi-device scaling: device meshes, shardings, halo exchange.
 
 Replaces the reference's shared-memory OpenMP parallelism (SURVEY.md §2
-P1-P12) with ``jax.sharding`` over an ICI/DCN device mesh:
+P1-P12) with ``jax.sharding`` over a device mesh (one host's GPUs, joined all to
+all by NVLink, or several hosts):
 
 - particles are sharded over the data axis; P2G scatters into device-local
-  grids that are summed with ``psum`` (the TPU analog of the reference's
+  grids that are summed with ``psum`` (the analog of the reference's
   write-disjoint OpenMP particle loops),
 - grid stencils (pressure CG, extrapolation) run on z-sharded tiles with
   width-1 halo exchange via ``lax.ppermute``,

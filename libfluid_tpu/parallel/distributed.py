@@ -2,21 +2,20 @@
 mesh construction.
 
 The reference is strictly single-process shared memory (SURVEY.md §5
-"distributed backend": none — OpenMP + mutexes); on TPU pods the runtime is
-one process per host, devices stitched over ICI/DCN. This module is the
-bring-up recipe:
+"distributed backend": none — OpenMP + mutexes). One process drives all
+GPUs of one host and needs none of this; across hosts the runtime is one
+process per host. This module is the bring-up recipe:
 
     from libfluid_tpu.parallel import distributed
-    distributed.init_distributed()          # env-driven on TPU pods
+    distributed.init_distributed("host0:1234", num_processes=2, process_id=i)
     mesh = distributed.global_mesh(("dp",)) # all devices, all processes
 
     state = zshard_state(state, cfg, mesh)  # then exactly as single-host
     state, diag = jax.jit(lambda s: substep_z(s, cfg, dt, mesh))(state)
 
-On Cloud TPU, ``jax.distributed.initialize()`` discovers the coordinator
-from the metadata server — call with no arguments. Elsewhere (the 2-process
-CPU test, ``tests/test_distributed.py``) pass coordinator/process counts
-explicitly.
+Nothing tells JAX of a cluster, so pass the coordinator's ``host:port``,
+the process count and this process' id explicitly (as the 2-process CPU
+test, ``tests/test_distributed.py``, does).
 """
 
 from __future__ import annotations
@@ -35,7 +34,8 @@ def init_distributed(
     local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
     """Join (or start) the distributed runtime. Idempotent: calling twice is
-    a no-op. With no arguments, TPU pod environments self-configure."""
+    a no-op. Arguments left as None fall back to JAX's own cluster
+    detection, which finds nothing on a plain GPU host."""
     if jax._src.distributed.global_state.client is not None:  # already up
         return
     kwargs = {}
@@ -56,8 +56,8 @@ def global_mesh(
 ) -> Mesh:
     """Mesh over ALL devices of ALL processes, ordered process-major (so a
     1-D 'dp' axis keeps each host's devices contiguous — z-slabs land on the
-    host that owns them and halo ppermutes ride ICI, crossing DCN only at
-    host boundaries)."""
+    host that owns them and halo ppermutes stay on the host's NVLink,
+    crossing the network only at host boundaries)."""
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n = len(devs)
     if axis_sizes is None:

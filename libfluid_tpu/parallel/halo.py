@@ -2,7 +2,7 @@
 
 The sharded analog of the CP/SP slot in SURVEY.md §5: the grid's long axis is
 partitioned over the mesh; width-1 ghost layers move with ``lax.ppermute``
-(XLA lowers this to ICI ring transfers that overlap with compute). Used under
+(XLA lowers this to collective permutes, NCCL on GPUs). Used under
 ``jax.shard_map``.
 """
 

@@ -5,7 +5,7 @@ The scaling layout (SURVEY.md §2 P1-P12):
   slice; P2G scatter-adds into a device-local grid that GSPMD all-reduces),
 - the grid replicated at this scale (z-tiled halo pressure in
   :mod:`libfluid_tpu.parallel.halo` takes over at 256^3+),
-- camera rays sharded over 'dp' with a ``shard_map`` wavefront,
+- camera rays sharded over 'dp' (one global wavefront, sharding-constrained),
 - gradients all-reduced by the ``psum`` transposes GSPMD inserts in backward.
 
 ``training_step`` is the framework's "training" analog: differentiable
@@ -17,7 +17,6 @@ image -> sphere proxies at particle positions -> G2P -> pressure solve
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
@@ -40,7 +39,7 @@ def shard_sim_state(
     enough — the grid/solid arrays z-sharded over the same axis.
 
     With a z-sharded grid, GSPMD turns every pressure/extrapolation stencil
-    into halo exchanges (``lax.ppermute`` on ICI) and the CG dot products
+    into halo exchanges (``lax.ppermute``) and the CG dot products
     into ``psum``s — the SP/CP slot of SURVEY §5 driven end-to-end through
     the production substep rather than the replicated-grid fallback. The
     hand-written shard_map kernels in :mod:`libfluid_tpu.parallel.halo`
@@ -85,10 +84,7 @@ def shard_sim_state(
 def sharded_substep(state: SimState, cfg: SimConfig, dt, mesh: Mesh):
     """jit-compiled substep, explicitly sharded: particles owner-distributed
     by z-slab, grid z-tiled, all communication hand-placed
-    (:mod:`libfluid_tpu.parallel.zshard`). `state` is redistributed first;
-    measured overhead on an 8-device CPU mesh is ~1.1x one device
-    (SCALING_r03.json) vs 11-15x for GSPMD propagation through the dense
-    substep (the round-2 approach)."""
+    (:mod:`libfluid_tpu.parallel.zshard`). `state` is redistributed first."""
     from libfluid_tpu.parallel.zshard import substep_z, zshard_state
 
     st = zshard_state(state, cfg, mesh)
@@ -101,36 +97,31 @@ def sharded_render(
 ) -> jnp.ndarray:
     """Render with rays sharded over 'dp' (ref ``rendering.h`` OpenMP rows).
 
-    Pixels are traced in a shard_map: each device traces H*W/n rays with its
-    own fold_in'd key — deterministic regardless of device count.
+    The camera rays are one global batch whose leading axis is constrained
+    to 'dp', so each device traces H*W/n of them. Threefry's partitionable
+    mode (JAX's default) makes every random draw independent of how the
+    batch is sharded, so the image is the same for any device count up to
+    float reassociation.
     """
     w, h = cfg.width, cfg.height
     px = jnp.arange(w, dtype=jnp.float32)
     py = jnp.arange(h, dtype=jnp.float32)
     gx, gy = jnp.meshgrid(px, py, indexing="xy")
-    base = jnp.stack([gx, gy], axis=-1).reshape(-1, 2)
+    rays = NamedSharding(mesh, P("dp"))
+    base = jax.lax.with_sharding_constraint(
+        jnp.stack([gx, gy], axis=-1).reshape(-1, 2), rays
+    )
     inv = jnp.asarray([1.0 / w, 1.0 / h], jnp.float32)
 
-    def tile(scene, base_tile, key):
-        me = jax.lax.axis_index("dp")
-        k = jax.random.fold_in(key, me)
-        acc = jnp.zeros((base_tile.shape[0], 3), jnp.float32)
-        for s in range(cfg.samples_per_pixel):
-            k1, k2, k = jax.random.split(jax.random.fold_in(k, s), 3)
-            sp = (base_tile + jax.random.uniform(k1, base_tile.shape)) * inv
-            o, d = camera.get_rays(sp)
-            acc = acc + trace_rays(scene, o, d, k2, cfg)
-        return acc / cfg.samples_per_pixel
-
-    mapped = jax.shard_map(
-        tile,
-        mesh=mesh,
-        in_specs=(P(), P("dp"), P()),
-        out_specs=P("dp"),
-        check_vma=False,
-    )
-    img = mapped(scene, base, key)
-    return img.reshape(h, w, 3)
+    acc = jnp.zeros((w * h, 3), jnp.float32)
+    for s in range(cfg.samples_per_pixel):
+        k1, k2 = jax.random.split(jax.random.fold_in(key, s))
+        sp = (base + jax.random.uniform(k1, base.shape)) * inv
+        o, d = camera.get_rays(sp)
+        o = jax.lax.with_sharding_constraint(o, rays)
+        d = jax.lax.with_sharding_constraint(d, rays)
+        acc = acc + trace_rays(scene, o, d, k2, cfg)
+    return (acc / cfg.samples_per_pixel).reshape(h, w, 3)
 
 
 def _spheres_at(scene: Scene, centers: jnp.ndarray, radius: float) -> Scene:

@@ -1,9 +1,8 @@
 """Explicit z-sharded simulation substep — one ``shard_map`` over the mesh.
 
-Round 2 drove the substep through GSPMD propagation (annotate inputs, let the
-partitioner figure it out); measured on the 8-device CPU mesh that *anti-
-scaled* 11-15x — GSPMD reshards the dp-sharded particles against the
-z-sharded grid at every scatter/gather/sort. This module is the fix: the
+GSPMD propagation through the dense substep (annotate inputs, let the
+partitioner figure it out) reshards the dp-sharded particles against the
+z-sharded grid at every scatter/gather/sort. This module avoids that: the
 whole substep runs *inside* ``jax.shard_map``, every stage is local-per-tile
 by construction, and the only communication is what the physics needs:
 
@@ -537,6 +536,10 @@ def _exchange_particles(pos, vel, aff, act, cfg: SimConfig, nzl: int, cap: int):
     recv_lo = jnp.where(d == 0, jnp.zeros_like(recv_lo), recv_lo)
     recv_hi = jnp.where(d == ndev - 1, jnp.zeros_like(recv_hi), recv_hi)
     recv = jnp.concatenate([recv_lo, recv_hi], axis=0)  # (2cap, 16)
+    # received particles first: the free slots go to them, not to the empty
+    # tail of the lower buffer (which otherwise pushed every row received
+    # from above past a nearly full block's free slots)
+    recv = recv[jnp.argsort(recv[:, 15] <= 0.5, stable=True)]
 
     keep = act & (rel == 0)
     kept = payload * keep[:, None].astype(payload.dtype)

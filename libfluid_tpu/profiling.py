@@ -4,10 +4,8 @@ The reference measures with ``std::chrono`` around renders
 (``testbed/main.cpp:431-451``) and compile-gated BVH counters
 (``aabb_tree.cpp:11,228-230``). Here:
 
-- :func:`sync` / :func:`timeit` — reliable wall-clock timing. Under remote
-  TPU backends ``jax.block_until_ready`` can return before execution drains;
-  only a device->host fetch is a true barrier, so every measurement ends
-  with one.
+- :func:`timeit` — wall-clock timing; every measurement ends in
+  ``jax.block_until_ready`` (JAX returns before the device finishes).
 - :func:`trace` — a ``jax.profiler`` trace context writing a TensorBoard/
   Perfetto trace directory with per-HLO device timings (the XLA-native
   replacement for hand counters).
@@ -22,30 +20,19 @@ import time
 from typing import Dict
 
 import jax
-import numpy as np
-
-
-def sync(tree) -> None:
-    """Force full device-queue drain by fetching one scalar to host."""
-    leaves = jax.tree_util.tree_leaves(tree)
-    if not leaves:
-        return
-    leaf = leaves[0]
-    if hasattr(leaf, "shape"):
-        np.asarray(leaf[tuple(0 for _ in leaf.shape)])
 
 
 def timeit(f, *args, iters: int = 5, warmup: int = 2):
-    """(seconds_per_call, last_output) of f(*args), host-synced."""
+    """(seconds_per_call, last_output) of f(*args), device-synced."""
     out = None
     for _ in range(max(warmup, 1)):
         out = f(*args)
-    sync(out)
-    t0 = time.time()
+    jax.block_until_ready(out)
+    t0 = time.perf_counter()
     for _ in range(iters):
         out = f(*args)
-    sync(out)
-    return (time.time() - t0) / iters, out
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / iters, out
 
 
 @contextlib.contextmanager
@@ -59,7 +46,7 @@ def trace(log_dir: str):
 
 
 class StageTimer:
-    """Accumulates host-synced wall-clock per named stage."""
+    """Accumulates device-synced wall-clock per named stage."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -70,7 +57,7 @@ class StageTimer:
         t0 = time.time()
         yield
         if result is not None:
-            sync(result)
+            jax.block_until_ready(result)
         self.totals[name] = self.totals.get(name, 0.0) + time.time() - t0
         self.counts[name] = self.counts.get(name, 0) + 1
 

@@ -1,4 +1,4 @@
-"""Renderer: TPU-native wavefront path tracing.
+"""Renderer: wavefront path tracing.
 
 Replaces the reference's L4b layer (``include/fluid/renderer/``,
 ``src/renderer/``). The ``std::variant`` primitive/material dispatch becomes

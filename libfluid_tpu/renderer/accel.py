@@ -1,7 +1,7 @@
 """Uniform-grid ray acceleration structure (wavefront 3D-DDA traversal).
 
 Replaces the reference's SAH BVH (``aabb_tree.cpp:110-221`` build,
-``:227-322`` traversal) with the TPU-native design from SURVEY.md §2 P9:
+``:227-322`` traversal) with the design from SURVEY.md §2 P9:
 divergent tree descent does not vectorize, but a uniform grid walked with a
 3D-DDA keeps every ray in lock-step — each wavefront iteration either tests a
 small chunk of the ray's current cell's triangles (one row gather + batched
@@ -41,7 +41,7 @@ class Accel(NamedTuple):
     # cell, capped at DIST_CAP. The traversal jumps dist-1 cells through
     # empty space in ONE wavefront iteration — the lockstep DDA otherwise
     # pays the worst ray's per-cell step count through open regions above a
-    # fluid surface (VERDICT r4 weak #3: 16.7 s/frame on config 3)
+    # fluid surface
     dist: jnp.ndarray
 
     @property
@@ -50,10 +50,9 @@ class Accel(NamedTuple):
         return rx * ry * rz
 
 
-DIST_CAP = 16  # max empty-skip radius stored in Accel.dist (cells); the r5
-# config-3 sweep measured 16 over 8 worth ~12% frame time (longer hops
-# through the open region above the fluid), with the extra erosion passes
-# amortized by the per-frame build
+DIST_CAP = 16  # max empty-skip radius stored in Accel.dist (cells): longer
+# hops through the open region above the fluid, for erosion passes the
+# per-frame build amortizes (a tuning constant)
 
 
 def _valid_tris(scene) -> jnp.ndarray:

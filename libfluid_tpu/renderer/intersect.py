@@ -4,8 +4,8 @@ Replaces the reference's SAH BVH traversal (``aabb_tree.cpp:227-322``) with a
 wavefront-friendly formulation: every ray tests triangle chunks in a
 ``lax.scan`` (bounded memory, fully vectorized Möller–Trumbore over the
 ray x chunk block) and all spheres, keeping the nearest hit. For the scenes
-the reference ships (tens of triangles, one sphere) this is faster on TPU
-than divergent tree traversal; fluid meshes (10^5 triangles) get a two-level
+the reference ships (tens of triangles, one sphere) this beats divergent
+tree traversal on a wavefront; fluid meshes (10^5 triangles) get a two-level
 uniform-grid accelerator in a later pass (SURVEY.md §2 P9).
 """
 
@@ -18,6 +18,10 @@ import jax.numpy as jnp
 
 from libfluid_tpu.math import intersection as isect
 from libfluid_tpu.renderer.scene import Scene
+
+# full float32 for the small frame/transform products (a GPU may run them
+# in TF32, which moves hit points by ~1e-3 relative)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 _BIG = 3.0e38
 TRI_CHUNK = 512
@@ -139,9 +143,9 @@ def finalize_hit(
     # the VJP of every ray whose origin depends on scene geometry (the
     # mesher-in-the-loop gradient chain).
     stl = scene.sph_to_local  # (S, 3, 4)
-    o_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], origin) + stl[None, :, :, 3]
+    o_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], origin, precision=_HIGHEST) + stl[None, :, :, 3]
     o_loc = jnp.clip(o_loc, -1e15, 1e15)
-    d_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], direction)
+    d_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], direction, precision=_HIGHEST)
     sh, st = isect.ray_unit_sphere(o_loc, d_loc)
     sh = sh & (scene.sph_mat > 0)[None, :]
     st = jnp.where(sh, st, _BIG)
@@ -173,7 +177,7 @@ def finalize_hit(
         d_loc, sj[:, None, None], axis=1
     )[:, 0] * s_t_lp[:, None]
     a_loc = scene.sph_to_local[safe_sid][:, :, :3]
-    sph_n = jnp.einsum("rji,rj->ri", a_loc, lp)  # A^T * local_normal
+    sph_n = jnp.einsum("rji,rj->ri", a_loc, lp, precision=_HIGHEST)  # A^T * local_normal
     sph_n = sph_n / jnp.maximum(
         jnp.linalg.norm(sph_n, axis=-1, keepdims=True), 1e-30
     )
@@ -293,9 +297,9 @@ def test_visibility(scene: Scene, p1: jnp.ndarray, p2: jnp.ndarray, eps=1e-4) ->
 
     # spheres: boolean-only local-space test
     stl = scene.sph_to_local  # (S, 3, 4)
-    o_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], o) + stl[None, :, :, 3]
+    o_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], o, precision=_HIGHEST) + stl[None, :, :, 3]
     o_loc = jnp.clip(o_loc, -1e15, 1e15)
-    d_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], d)
+    d_loc = jnp.einsum("sij,rj->rsi", stl[:, :, :3], d, precision=_HIGHEST)
     sh, st = isect.ray_unit_sphere(o_loc, d_loc)
     sph_blocked = jnp.any(
         sh & (st < t_max) & (scene.sph_mat > 0)[None, :], axis=1

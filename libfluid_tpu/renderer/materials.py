@@ -3,7 +3,7 @@
 Replaces the reference's ``std::variant`` BSDFs (``bsdf.h/.cpp``) and
 materials (``material.h/.cpp``) with a table: kind id + parameters per
 material, and batched evaluate/sample functions that compute all three BSDF
-kinds elementwise and select by kind — branchless, TPU-friendly, and
+kinds elementwise and select by kind — branchless, wavefront-friendly, and
 differentiable w.r.t. albedo/emission/IOR.
 
 Conventions (identical to the reference):

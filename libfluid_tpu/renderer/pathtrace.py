@@ -24,15 +24,17 @@ from libfluid_tpu.config import RenderConfig
 from libfluid_tpu.renderer import intersect, materials
 from libfluid_tpu.renderer.scene import Scene
 
+# full float32 for the small frame/transform products (a GPU may run them
+# in TF32, which moves hit points by ~1e-3 relative)
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 _RAY_OFFSET = 1e-3  # spawned-ray normal offset (ref scene.h:31 default 1e-6;
 # float32 needs a larger skin than the reference's double)
 
 # megakernel tuning: grid-DDA traversal sub-steps per shading/respawn pass.
 # >1 trades a little lane idling (a finished cast waits for the pass) for
-# fewer executions of the full-width shading+respawn+init block. The r5
-# config-3 sweep: 1 -> 2876 ms, 2 -> 2303, 3 -> 2191 (with DIST_CAP 8);
-# 2 composes best with DIST_CAP 16 (2034 ms) and idles less than 3 on
-# short-walk scenes.
+# fewer executions of the full-width shading+respawn+init block (a tuning
+# constant).
 _TRAV_STEPS_PER_SHADE = 2
 
 
@@ -49,7 +51,7 @@ def _bounce(scene: Scene, cfg: RenderConfig, carry, k, bounce_idx):
     )
 
     frame = intersect.tangent_frame(rec.normal)  # world -> tangent
-    win = jnp.einsum("rij,rj->ri", frame, -d)
+    win = jnp.einsum("rij,rj->ri", frame, -d, precision=_HIGHEST)
     k1, k2 = jax.random.split(k)
     xi = jax.random.uniform(k1, (r, 2), o.dtype)
     samp = materials.sample_bsdf(scene.materials, rec.mat_id, win, xi, uv=rec.uv)
@@ -57,7 +59,7 @@ def _bounce(scene: Scene, cfg: RenderConfig, carry, k, bounce_idx):
         jnp.abs(samp.direction[..., 1]) / jnp.maximum(samp.pdf, 1e-12)
     )[..., None]
 
-    new_d = jnp.einsum("rji,rj->ri", frame, samp.direction)  # tangent->world
+    new_d = jnp.einsum("rji,rj->ri", frame, samp.direction, precision=_HIGHEST)  # tangent->world
     offset_sign = jnp.where(samp.direction[..., 1] > 0.0, 1.0, -1.0)
     new_o = rec.position + rec.normal * (offset_sign * _RAY_OFFSET)[:, None]
 
@@ -149,8 +151,7 @@ def trace_persistent(
     per lane, shading+respawn the moment a lane's own traversal completes.
     Calling ``intersect.ray_cast`` per bounce instead would nest a lockstep
     while_loop whose every iteration the whole wavefront pays until the
-    SLOWEST ray's walk finishes — measured 700 ms per 65k-ray cast on the
-    config-3 fluid scene vs ~3 ms for a Cornell brute-force cast.
+    SLOWEST ray's walk finishes.
 
     Same estimator sample-for-sample as the scan driver: each sample is an
     independent ``max_bounces``-capped RR path whose RNG is a pure function
@@ -176,8 +177,7 @@ def _trace_persistent_brute(
     w, h = cfg.width, cfg.height
     npix = w * h
     # wavefront width: capped independently of the image — lanes just cycle
-    # through the global sample stream, and 64k lanes already saturate the
-    # chip (a 512^2 = 262k-lane wavefront hard-crashed the TPU worker)
+    # through the global sample stream (64k: a tuning constant)
     lanes = min(npix, 1 << 16)
     total = npix * cfg.samples_per_pixel
     dtype = jnp.float32
@@ -235,7 +235,7 @@ def _trace_persistent_brute(
         rad = rad + jnp.where(live_hit[:, None], tp * emis, 0.0)
 
         frame = intersect.tangent_frame(rec.normal)
-        win = jnp.einsum("rij,rj->ri", frame, -d)
+        win = jnp.einsum("rij,rj->ri", frame, -d, precision=_HIGHEST)
         u4 = lane_rng(sid, bounce, 3)
         samp = materials.sample_bsdf(
             scene.materials, rec.mat_id, win, u4[:, :2], uv=rec.uv
@@ -243,7 +243,7 @@ def _trace_persistent_brute(
         atten = samp.reflectance * (
             jnp.abs(samp.direction[..., 1]) / jnp.maximum(samp.pdf, 1e-12)
         )[..., None]
-        new_d = jnp.einsum("rji,rj->ri", frame, samp.direction)
+        new_d = jnp.einsum("rji,rj->ri", frame, samp.direction, precision=_HIGHEST)
         off = jnp.where(samp.direction[..., 1] > 0.0, 1.0, -1.0)
         new_o = rec.position + rec.normal * (off * _RAY_OFFSET)[:, None]
 
@@ -391,7 +391,7 @@ def _trace_persistent_mega(
         rad = rad + jnp.where(live_hit[:, None], tp * emis, 0.0)
 
         frame = intersect.tangent_frame(rec.normal)
-        win = jnp.einsum("rij,rj->ri", frame, -d)
+        win = jnp.einsum("rij,rj->ri", frame, -d, precision=_HIGHEST)
         u4 = lane_rng(sid, bounce, 3)
         samp = materials.sample_bsdf(
             scene.materials, rec.mat_id, win, u4[:, :2], uv=rec.uv
@@ -399,7 +399,7 @@ def _trace_persistent_mega(
         atten = samp.reflectance * (
             jnp.abs(samp.direction[..., 1]) / jnp.maximum(samp.pdf, 1e-12)
         )[..., None]
-        new_d = jnp.einsum("rji,rj->ri", frame, samp.direction)
+        new_d = jnp.einsum("rji,rj->ri", frame, samp.direction, precision=_HIGHEST)
         off = jnp.where(samp.direction[..., 1] > 0.0, 1.0, -1.0)
         new_o = rec.position + rec.normal * (off * _RAY_OFFSET)[:, None]
 

@@ -2,7 +2,7 @@
 
 At 256^3 (BASELINE config 5, the ``renders/tide.png`` hero scale) the dense
 slot grid costs 16 x K x 16.7M x 4B = 12.9 GB and the G2P face table 4.3 GB —
-past a single chip's HBM next to the particle SoA. This module runs the SAME
+past a 16 GB card's memory next to the particle SoA. This module runs the SAME
 stage semantics as :func:`libfluid_tpu.sim.step.substep` but streams the
 three neighborhood passes (P2G, position-correction springs, G2P) over
 ``slabs`` tiles along x (the major axis of the cell index, so every slab's
@@ -15,7 +15,8 @@ exact arithmetic to the dense pass (equivalence-tested at small sizes).
 
 The reference reaches this scale only notionally (no test or bench exists
 above its interactive 50^3 default, ``testbed/main.cpp:39``); the slab loop
-replaces nothing in the reference — it is the TPU memory plan for config 5.
+replaces nothing in the reference — it is the memory plan for config 5 on
+a card too small for the dense slot grid.
 """
 
 from __future__ import annotations
@@ -147,7 +148,7 @@ def substep_tiled(
         data, off = expand_slab(s)
 
         sg = slots_mod.SlotGrid(data=data, slot_of=None, overflow=None)
-        num, den = transfers._p2g_data(data, scfg)
+        num, den = transfers._p2g_slots_jnp(data, scfg)
         # interior faces only: u local [1, sx+1), v/w x-cells [1, sx+1)
         x0 = s * sx
         nums = (

@@ -8,7 +8,7 @@ face and cancels the remaining motion along that axis; up to three rounds
 (one per axis) re-march the shortened segment. A per-axis skin push-out from
 adjacent solid cells / domain walls follows.
 
-TPU formulation: the same DDA, vectorized over the particle wavefront as a
+Here: the same DDA, vectorized over the particle wavefront as a
 ``lax.while_loop`` — every lane advances its own min-t axis each iteration
 and lanes finish independently; the loop exits when all lanes are done (for
 CFL-bounded motion that is a handful of iterations). This visits EVERY cell

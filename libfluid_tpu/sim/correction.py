@@ -6,11 +6,12 @@ every particle accumulates a repulsive spring from neighbors within the 3x3x3
 cell neighborhood with kernel (1 - d^2/re^2)^3, re = h/sqrt(2), and moves by
 spring * dt * stiffness * re, clamped back into the domain (no skin).
 
-TPU formulation: a dense pairwise pass over the cell-slot grid
+Formulation: a dense pairwise pass over the cell-slot grid
 (:mod:`libfluid_tpu.sim.slots`). For each of the 27 neighbor offsets, the
 neighbor cell's slots are a *statically shifted slice* of the slot grid —
-no gathers at all; the (K_res, K_nbr) pairwise springs reduce on the VPU and
-XLA streams one fused kernel per offset. Only the first
+no gathers at all; XLA streams one fused reduction per offset
+(:func:`_springs_jnp`), and on a GPU one Pallas kernel does all 27
+(:mod:`libfluid_tpu.sim.kernels`). Only the first
 ``correction_capacity`` slots per cell participate (the spring force is a
 bounded heuristic; with the default 8-particles-per-cell seeding the
 truncation is inactive). The reference's per-thread RNG for coincident pairs
@@ -42,69 +43,101 @@ def _springs_jnp(
     """Per-slot springs, pure jnp (the semantic oracle and the CPU path).
 
     springs = sum_j w_ij (x_i - x_j) = x_i * (sum_j w_ij) - sum_j w_ij x_j,
-    so only (KC_res, KC_nbr, grid)-shaped values with a single reduction
-    consumer exist per offset — XLA fuses them; a materialized pairwise
-    offset tensor would be 1.5 GB * 27 and OOMs the chip.
+    accumulated one neighbor offset per loop step, and within a step one
+    neighbor slot at a time: elementwise passes over (KC, nx, ny, nz) only.
+    (The 27 pairwise (KC, KC, grid) reductions this replaces took XLA's GPU
+    compiler minutes even at 32^3.) The loop body is rematerialized, so the
+    backward pass saves no per-step values.
     """
     kc = res_pos.shape[1]
-    wsum = jnp.zeros_like(res_mask)  # (KC, nx, ny, nz)
-    wnbr = jnp.zeros_like(res_pos)  # (3, KC, nx, ny, nz)
-    coincident = jnp.zeros_like(res_mask)
+    nx, ny, nz = cfg.grid_size
+    grid_pad = [(1, 1), (1, 1), (1, 1)]
+    pos_p = jnp.pad(res_pos, [(0, 0), (0, 0)] + grid_pad)
+    mask_p = jnp.pad(res_mask, [(0, 0)] + grid_pad)
+    offsets = jnp.asarray(slots_mod.NEIGHBOR_OFFSETS, jnp.int32) + 1
+    self_offset = slots_mod.NEIGHBOR_OFFSETS.index((0, 0, 0))
+    slot = jax.lax.broadcasted_iota(jnp.int32, res_mask.shape, 0)
 
-    for d in slots_mod.NEIGHBOR_OFFSETS:
-        nbr_pos = slots_mod.shifted(res_pos, d, cfg)
-        nbr_mask = slots_mod.shifted(res_mask, d, cfg)
-        # pairwise (KC res, KC nbr, nx, ny, nz); grid dims stay minor
-        sq = sum(
-            (res_pos[i][:, None] - nbr_pos[i][None, :]) ** 2 for i in range(3)
-        )
-        pair = res_mask[:, None] * nbr_mask[None, :]
-        if d == (0, 0, 0):
+    @jax.checkpoint
+    def step(t, acc):
+        wsum, wnbr, coincident = acc
+        ox, oy, oz = offsets[t, 0], offsets[t, 1], offsets[t, 2]
+        nbr_pos = jax.lax.dynamic_slice(pos_p, (0, 0, ox, oy, oz), res_pos.shape)
+        nbr_mask = jax.lax.dynamic_slice(mask_p, (0, ox, oy, oz), res_mask.shape)
+        for j in range(kc):
+            sq = sum((res_pos[c] - nbr_pos[c, j]) ** 2 for c in range(3))
+            pair = res_mask * nbr_mask[j]
             # exclude each slot against itself
-            eye = jnp.eye(kc, dtype=cfg.dtype).reshape(kc, kc, 1, 1, 1)
-            pair = pair * (1.0 - eye)
-        degenerate = sq < 1e-12
-        kern = jnp.maximum(1.0 - sq / re2, 0.0) ** 3
-        w = kern * jax.lax.rsqrt(jnp.maximum(sq, 1e-12))
-        w = jnp.where(degenerate, 0.0, w) * pair
-        wsum = wsum + jnp.sum(w, axis=1)
-        wnbr = wnbr + jnp.stack(
-            [jnp.sum(w * nbr_pos[i][None, :], axis=1) for i in range(3)]
-        )
-        coincident = coincident + jnp.sum(jnp.where(degenerate, pair, 0.0), axis=1)
+            pair = jnp.where((t == self_offset) & (slot == j), 0.0, pair)
+            degenerate = sq < 1e-12
+            kern = jnp.maximum(1.0 - sq / re2, 0.0) ** 3
+            w = kern * jax.lax.rsqrt(jnp.maximum(sq, 1e-12))
+            w = jnp.where(degenerate, 0.0, w) * pair
+            wsum = wsum + w
+            wnbr = wnbr + w[None] * nbr_pos[:, j][:, None]
+            coincident = coincident + jnp.where(degenerate, pair, 0.0)
+        return wsum, wnbr, coincident
 
+    wsum, wnbr, coincident = jax.lax.fori_loop(
+        0, len(slots_mod.NEIGHBOR_OFFSETS), step,
+        (jnp.zeros_like(res_mask), jnp.zeros_like(res_pos), jnp.zeros_like(res_mask)),
+    )
     springs = res_pos * wsum[None] - wnbr
+    return _add_jitter(springs, coincident, seed, origin, cfg)
 
-    # near-coincident pairs contribute a uniform random force in [-1,1]^3
-    # (ref simulation.cpp:585-589): one deterministic hash value per
-    # (global cell, slot, component) scaled by the slot's coincident-pair
-    # count — identical across the dense/tiled/z-sharded paths by
-    # construction (ADVICE r4 high: path-dependent jax.random draws broke
-    # dense<->tiled equivalence)
+
+def _add_jitter(springs, coincident, seed, origin, cfg: SimConfig):
+    """Near-coincident pairs contribute a uniform random force in [-1,1]^3
+    (ref simulation.cpp:585-589): one deterministic hash value per (global
+    cell, slot, component) scaled by the slot's coincident-pair count —
+    identical across the dense/tiled/z-sharded paths by construction."""
     jitter = jitterhash.jitter_field(
-        seed, res_pos.shape[1], res_pos.shape[2:], origin, cfg.dtype
+        seed, springs.shape[1], springs.shape[2:], origin, cfg.dtype
     )
     return springs + coincident[None] * jitter
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
-def _springs(res_pos, res_mask, seed, origin, re2: float, cfg: SimConfig):
-    """Springs with Pallas forward on TPU and the jnp VJP for gradients.
-    ``seed`` is an int32 scalar (jitterhash.seed_from_key); ``origin`` a
-    length-3 int32 global offset — the coincident jitter hashes the two
-    identically on both backends, so Pallas == jnp bit-for-bit intent."""
+def _springs_triton(res_pos, res_mask, re2, seed, cfg: SimConfig, origin,
+                    interpret: bool = False):
+    """The GPU kernel's springs plus the jnp jitter."""
     from libfluid_tpu.sim import kernels
 
-    if kernels.pallas_ok(cfg):
-        return kernels.correction_springs_pallas(
-            res_pos, res_mask, re2, seed, cfg, origin_x=origin[0]
-        )
-    return _springs_jnp(res_pos, res_mask, re2, seed, cfg, origin=origin)
+    springs, coincident = kernels.correction_springs_triton(
+        res_pos, res_mask, re2, interpret=interpret
+    )
+    return _add_jitter(springs, coincident, seed, origin, cfg)
+
+
+def _springs_forward(res_pos, res_mask, seed, origin, re2, cfg: SimConfig):
+    """Static dispatch: a program lowered for a GPU runs the kernel for
+    float32, one lowered for any other platform the jnp oracle; float64
+    always runs the oracle. A slot payload the kernel cannot take raises."""
+    def oracle(p, m, s, o):
+        return _springs_jnp(p, m, re2, s, cfg, origin=o)
+
+    if cfg.dtype != jnp.float32:
+        return oracle(res_pos, res_mask, seed, origin)
+    from libfluid_tpu.sim import kernels
+
+    kernels.check_correction_shape(res_pos.shape[1], res_pos.shape[2:])
+    return jax.lax.platform_dependent(
+        res_pos, res_mask, seed, origin,
+        cuda=lambda p, m, s, o: _springs_triton(p, m, re2, s, cfg, o),
+        default=oracle,
+    )
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
+def _springs(res_pos, res_mask, seed, origin, re2: float, cfg: SimConfig):
+    """Springs with the GPU kernel forward and the jnp VJP for gradients.
+    ``seed`` is an int32 scalar (jitterhash.seed_from_key); ``origin`` a
+    length-3 int32 global offset of the window's cell (0, 0, 0)."""
+    return _springs_forward(res_pos, res_mask, seed, origin, re2, cfg)
 
 
 def _springs_fwd(res_pos, res_mask, seed, origin, re2: float, cfg: SimConfig):
     return (
-        _springs(res_pos, res_mask, seed, origin, re2, cfg),
+        _springs_forward(res_pos, res_mask, seed, origin, re2, cfg),
         (res_pos, res_mask, seed, origin),
     )
 
@@ -218,10 +251,7 @@ def correct_positions(
     springs = _springs(res_pos, res_mask, seed, origin, re2, cfg)
 
     # slot springs -> particles (slot index rank*num_cells + cell is
-    # unchanged by slicing ranks < KC). Measured on-chip: three scalar
-    # gathers at ~36 ms / 2M beat every row-packed variant tried ((N,32)
-    # cell rows + one-hot rank select gathers at 80 ms — TPU row gathers
-    # from multi-hundred-MB tables run SLOWER per element than scalar ones).
+    # unchanged by slicing ranks < KC): three scalar gathers
     spring = slots_mod.gather_per_particle(
         springs, slot_grid._replace(
             slot_of=jnp.where(

@@ -2,7 +2,7 @@
 
 The reference draws a per-thread uniform random force for exactly-coincident
 particle pairs (``simulation.cpp:585-589``) — any fixed distribution works,
-only symmetry-breaking matters. On TPU the jitter must additionally be
+only symmetry-breaking matters. Here the jitter must additionally be
 *path-invariant*: the dense substep, the slab-tiled substep and the z-sharded
 substep all evaluate the same (global cell, slot) and must produce bit-equal
 positions (the equivalence suite asserts it; ADVICE r4 high: per-path
@@ -11,8 +11,8 @@ equivalence the moment coincident mates entered the dense pass).
 
 So the jitter is a counter-based hash of ``(substep seed, global cell
 coordinates, slot rank, component)`` — no PRNG state, no shape dependence,
-identical in jnp and inside the Pallas correction kernel (plain int32
-mul/xor/shift ops, all Mosaic-lowerable). Quality requirements are mild
+identical wherever it is evaluated (plain int32 mul/xor/shift ops).
+Quality requirements are mild
 (symmetry breaking of a heuristic spring), uniformity in [-1, 1) is plenty.
 """
 

@@ -1,27 +1,25 @@
-"""Pallas TPU kernels for the neighborhood-heavy simulation passes.
+"""Pallas GPU kernel (Triton route) for the position-correction springs.
 
-The dense slot-grid passes (:mod:`libfluid_tpu.sim.slots` consumers) are
-HBM-bound under XLA: every one of the 27 neighbor offsets re-streams the slot
-payload from HBM. These kernels tile the grid over (x, y), keep a halo'd slot
-slab resident in VMEM, and run all offsets against it — the payload is read
-from HBM once instead of 27 times, and the pairwise math runs at VPU speed.
+The plain jnp pass (:func:`libfluid_tpu.sim.correction._springs_jnp`) runs
+27 fused XLA passes, one per neighbour offset, and each pass re-reads the
+resident slot payload and reads and writes the five (KC, nx, ny, nz)
+accumulators. This kernel reads each slot once per neighbouring tile and
+keeps the accumulators in registers.
 
-Halo handling: overlapping input windows are not expressible with BlockSpec
-index maps, >3D strided manual DMA faults the chip, and materializing halo'd
-tile windows in XLA costs more than the whole jnp pass (round 1's mistake).
-Instead every kernel runs on a 1D grid over x-planes with THREE inputs — the
-same payload under clamped index maps (i-1, i, i+1) — so the x halo costs 3x
-streaming reads and zero copies; y/z halos are dynamic in-VMEM lane rolls
-inside fori taps (27 unrolled offsets took Mosaic tens of minutes at 128^2
-planes). Positions are absolute world coordinates, so roll wrap-around
-self-masks through each kernel's compact support.
+Design:
 
-Layout contract (from :mod:`slots`): arrays are (C, K, nx, ny, nz) with z
-minor — z maps onto the 128 vector lanes.
+- one program per tile of ``TILE_Z`` cells along z (fixed x, y); it loads
+  its own slots and, for each of the 27 neighbour offsets, the neighbour
+  tile's slots with masked gather loads (out-of-domain cells load as empty);
+- every output slot is a plain sum over its own neighbourhood, so programs
+  write disjoint outputs and run in any order — each pair is evaluated from
+  both sides instead of carrying Newton's-third-law halves between programs;
+- the slot axis is padded from KC to a power of two under a mask;
+- a tile with no residents writes zeros without touching its neighbours, and
+  an empty neighbour tile is skipped: at a dam break most of the grid is air.
 
-The kernels are forward-only; gradients fall back to the pure-jnp
-implementations via ``jax.custom_vjp`` (the jnp versions are the semantic
-oracle — bit-compatible up to reduction order — and are the CPU/test path).
+The kernel returns the jitter-free springs and the coincident-pair counts;
+the caller adds the counter-hashed jitter in jnp, exactly as the oracle does.
 """
 
 from __future__ import annotations
@@ -31,514 +29,132 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from libfluid_tpu.config import SimConfig
-from libfluid_tpu.sim import slots as slots_mod
-
-
-def pallas_ok(cfg: SimConfig) -> bool:
-    """Static dispatch: the Pallas path needs a TPU backend, f32, and grid
-    dims divisible by the tile size."""
-    nx, ny, nz = cfg.grid_size
-    return (
-        jax.default_backend() == "tpu"
-        and cfg.dtype == jnp.float32
-        and nx % 8 == 0
-        and ny % 8 == 0
-        and nz % 128 == 0
-    )
+TILE_Z = 32  # cells per program along z (a power of two)
+NUM_WARPS = 4
+MAX_SLOTS = 16  # slot capacity the kernel takes (padded to a power of two)
 
 
-# ---------------------------------------------------------------------------
-# P2G: particle-to-grid momentum transfer
-# ---------------------------------------------------------------------------
-
-
-def _p2g_kernel(
-    occ_ref,  # scalar prefetch (gx,) int32 — plane (or halo) holds particles
-    left_ref,  # VMEM (16K, 1, ny, nz) payload plane x = i-1 (clamped)
-    ctr_ref,  # VMEM (16K, 1, ny, nz) payload plane x = i
-    right_ref,  # VMEM (16K, 1, ny, nz) payload plane x = i+1 (clamped)
-    un_ref,  # VMEM out (1, ny, nz) — lo-face accumulators of the plane's cells
-    vn_ref,
-    wn_ref,
-    ud_ref,
-    vd_ref,
-    wd_ref,
-    *,
-    k: int,
-    h: float,
-    offset: tuple,
-    use_affine: bool,
-):
-    """All P2G contributions to the LO faces of one x-plane of cells.
-
-    Face f (cell-indexed: the lo face of cell c along `axis`) accumulates the
-    kernel-weighted momentum of cells b = c - d for the 18 offsets d in its
-    staggered support (d_axis in {0,1}, others {-1,0,1}) — the same sum as
-    the jnp oracle (``transfers.p2g_slots``, ref ``simulation.cpp:293-412``).
-
-    Tiling: grid over x-planes with three clamped-index block inputs (left /
-    center / right plane). The x halo therefore costs 3x streaming reads of
-    the payload but ZERO materialized halo windows (the round-1
-    ``_halo_windows`` copy cost more than the whole jnp pass); y and z halos
-    are in-VMEM lane rolls.
-    """
-    i = pl.program_id(0)
-    nplanes = pl.num_programs(0)
-
-    @pl.when(occ_ref[i] == 0)
-    def _():
-        for ref in (un_ref, vn_ref, wn_ref, ud_ref, vd_ref, wd_ref):
-            ref[:] = jnp.zeros_like(ref)
-
-    def run(kcur: int):
-        ny, nz = ctr_ref.shape[-2], ctr_ref.shape[-1]
-        # x-block validity: at the domain edge the clamped neighbor block is
-        # a duplicate and must contribute nothing (no cells beyond the wall)
-        lvalid = (i > 0).astype(jnp.float32)
-        rvalid = (i < nplanes - 1).astype(jnp.float32)
-
-        inv_h = 1.0 / h
-        shape3 = (1, ny, nz)
-        cyf = jax.lax.broadcasted_iota(jnp.int32, shape3, 1).astype(jnp.float32)
-        czf = jax.lax.broadcasted_iota(jnp.int32, shape3, 2).astype(jnp.float32)
-        cxf = jnp.full(shape3, 0.0) + i.astype(jnp.float32)
-        cf = jnp.stack([cxf, cyf, czf])  # (3, 1, ny, nz)
-
-        # contribution offset d reads cell b = c - d: d_x = +1 -> LEFT plane
-        blocks = {1: (left_ref, lvalid), 0: (ctr_ref, 1.0), -1: (right_ref, rvalid)}
-
-        zero = jnp.zeros(shape3[1:], jnp.float32)
-        num = (zero, zero, zero)
-        den = (zero, zero, zero)
-
-        for dx in (-1, 0, 1):
-            # prep ONE block at a time — keeping all three blocks' derived
-            # arrays live spills VMEM registers (~84 MB at K=16/128^3)
-            ref, xvalid = blocks[dx]
-            win = ref[:, 0]  # (16K, ny, nz)
-            pos = win[: 3 * k].reshape(3, k, ny, nz)[:, :kcur]
-            gpos0 = jnp.stack(
-                [(pos[d] - offset[d]) * inv_h for d in range(3)]
-            )  # (3, kcur, ny, nz)
-            mask0 = win[3 * k : 3 * k + kcur] * xvalid
-            vel0 = win[4 * k : 7 * k].reshape(3, k, ny, nz)[:, :kcur]
-            aff0 = (
-                win[7 * k : 16 * k].reshape(3, 3, k, ny, nz)[:, :, :kcur]
-                if use_affine
-                else jnp.zeros((3, 3, 1, ny, nz), jnp.float32)
-            )
-
-            # the 9 (dy, dz) taps run as a fori_loop with DYNAMIC lane rolls:
-            # unrolling all 27 offsets made Mosaic compile for tens of
-            # minutes at 128^2 planes. Symmetric taps are exact — the hat
-            # support self-masks contributions outside d_a in {0, 1} (their
-            # |t| >= 1), including roll wrap-around (absolute coordinates).
-            def tap(t, acc):
-                num, den = list(acc[0]), list(acc[1])
-                dy = t // 3 - 1
-                dz = t % 3 - 1
-                shy = (-dy) % ny
-                shz = (-dz) % nz
-
-                def rollyz(a):
-                    return pltpu.roll(
-                        pltpu.roll(a, shy, axis=a.ndim - 2), shz, axis=a.ndim - 1
-                    )
-
-                gpos_b = rollyz(gpos0)
-                mask_b = rollyz(mask0)
-                vel_b = rollyz(vel0)
-                aff_b = rollyz(aff0) if use_affine else aff0
-                # hat factors at both staggered shifts per dim
-                tt = gpos_b - cf  # (3, K, ny, nz) via (3,1,ny,nz) broadcast
-                hat0 = jnp.maximum(1.0 - jnp.abs(tt), 0.0)
-                hat05 = jnp.maximum(1.0 - jnp.abs(tt - 0.5), 0.0)
-                for a in range(3):
-                    w = mask_b
-                    for dim in range(3):
-                        w = w * (hat0[dim] if dim == a else hat05[dim])
-                    val = vel_b[a]
-                    if use_affine:
-                        # + A_row . (x_face - x_p), in grid units * h
-                        for jdim in range(3):
-                            shift = 0.0 if jdim == a else 0.5
-                            dxj = (cf[jdim] + shift - gpos_b[jdim]) * h
-                            val = val + aff_b[a, jdim] * dxj
-                    num[a] = num[a] + jnp.sum(w * val, axis=0)
-                    den[a] = den[a] + jnp.sum(w, axis=0)
-                return tuple(num), tuple(den)
-
-            num, den = jax.lax.fori_loop(0, 9, tap, (num, den))
-
-        for a, (nref, dref) in enumerate(
-            zip((un_ref, vn_ref, wn_ref), (ud_ref, vd_ref, wd_ref))
-        ):
-            nref[0] = num[a]
-            dref[0] = den[a]
-
-    # lo/hi slot-block gating (same scheme as the correction kernel): slot
-    # ranks are prefix-dense, so a plane neighborhood holding no rank>=KC_LO
-    # particle anywhere runs the 8-slot sweep — K=12's extra third is paid
-    # only where the fluid is actually compressed
-    if k <= KC_LO:
-        @pl.when(occ_ref[i] > 0)
-        def _():
-            run(k)
-    else:
-        @pl.when(occ_ref[i] == 1)
-        def _():
-            run(KC_LO)
-
-        @pl.when(occ_ref[i] >= 2)
-        def _():
-            run(k)
-
-
-def plane_occupancy(mask: jnp.ndarray, halo: int = 1) -> jnp.ndarray:
-    """(K, nx, ny, nz) slot mask -> (nx,) int32: does x-plane i (or its halo
-    neighbors) hold any particle?"""
-    per_plane = jnp.sum(mask, axis=(0, 2, 3))  # (nx,)
-    nx = per_plane.shape[0]
-    p = jnp.pad(per_plane, (halo, halo))
-    acc = jnp.zeros((nx,), per_plane.dtype)
-    for d in range(2 * halo + 1):
-        acc = acc + p[d : d + nx]
-    return (acc > 0).astype(jnp.int32)
-
-
-def p2g_lo_faces_pallas(
-    data: jnp.ndarray,  # (16, K, nx, ny, nz) slot payload
-    cfg: SimConfig,
-    use_affine: bool,
-):
-    """UNNORMALIZED lo-face accumulators: (num_u, num_v, num_w, den_u,
-    den_v, den_w), each (nx, ny, nz). The caller merges overflow particles
-    and normalizes.
-
-    The hi boundary planes (faces x=nx, y=ny, z=nz) are NOT computed here —
-    the caller assembles them (they only see cells on the far boundary slab,
-    a cheap jnp pass)."""
-    width, k, nx, ny, nz = data.shape
-
-    payload = data.reshape(width * k, nx, ny, nz)
-    mask = data[slots_mod.COL_MASK]
-    occ = plane_occupancy(mask)
-    if k > KC_LO:
-        # 0 empty, 1 = planes i-1..i+1 all prefix-fit in KC_LO slots (the
-        # kernel reads the full x halo), 2 = hi slots present near plane i
-        hi = plane_occupancy(mask[KC_LO:], halo=1)
-        occ = occ * (1 + hi)
-
-    def xblock(dx):
-        return pl.BlockSpec(
-            (width * k, 1, ny, nz),
-            lambda i, *_: (0, jnp.clip(i + dx, 0, nx - 1), 0, 0),
-            memory_space=pltpu.VMEM,
+def check_correction_shape(kc: int, grid_size) -> None:
+    """Raises ValueError for a slot payload the kernel cannot take."""
+    nx, ny, nz = grid_size
+    if not 1 <= kc <= MAX_SLOTS:
+        raise ValueError(
+            f"correction kernel takes 1..{MAX_SLOTS} slots per cell, got {kc}"
+        )
+    if 3 * kc * nx * ny * nz >= 2**31:
+        raise ValueError(
+            f"correction kernel indexes with int32; grid {grid_size} x {kc} "
+            "slots is too large"
         )
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nx,),
-        in_specs=[xblock(-1), xblock(0), xblock(1)],
-        out_specs=[
-            pl.BlockSpec(
-                (1, ny, nz),
-                lambda i, *_: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ]
-        * 6,
-    )
-    out_shape = [jax.ShapeDtypeStruct((nx, ny, nz), jnp.float32)] * 6
-    return pl.pallas_call(
-        functools.partial(
-            _p2g_kernel,
-            k=k,
-            h=float(cfg.cell_size),
-            offset=tuple(float(o) for o in cfg.grid_offset),
-            use_affine=use_affine,
-        ),
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=120 * 1024 * 1024,
-        ),
-    )(occ, payload, payload, payload)
 
+def _springs_kernel(pos_ref, mask_ref, spr_ref, coin_ref, *,
+                    grid_size, kc: int, kp: int, tz: int, re2: float):
+    nx, ny, nz = grid_size
+    ncell = nx * ny * nz
+    nzb = pl.cdiv(nz, tz)
+    # lax.div/rem: jnp's // and % on int32 scalars do not lower on this route
+    div, rem = jax.lax.div, jax.lax.rem
+    p = pl.program_id(0)
+    zb = rem(p, nzb)
+    y = rem(div(p, nzb), ny)
+    x = div(p, nzb * ny)
 
-# ---------------------------------------------------------------------------
-# Position-correction springs
-# ---------------------------------------------------------------------------
+    k = jnp.arange(kp, dtype=jnp.int32)
+    z = zb * tz + jnp.arange(tz, dtype=jnp.int32)
+    kin = (k < kc)[:, None]
+    zin = (z < nz)[None, :]
+    # (kp, tz) tiles: slot major, cells along z minor (coalesced loads)
+    ridx = k[:, None] * ncell + ((x * ny + y) * nz + z)[None, :]
+    rld = kin & zin
+    rmask = plgpu.load(mask_ref.at[ridx], mask=rld, other=0.0)
+    rpos = [
+        plgpu.load(pos_ref.at[ridx + c * kc * ncell], mask=rld, other=0.0)
+        for c in range(3)
+    ]
+    # pair tensors are (kp resident, kp neighbour, tz)
+    same_slot = k[:, None, None] == k[None, :, None]
+    zeros = jnp.zeros((kp, tz), jnp.float32)
 
+    def offset(t, acc):
+        dx = div(t, 9) - 1
+        dy = rem(div(t, 3), 3) - 1
+        dz = rem(t, 3) - 1
+        xn = x + dx
+        yn = y + dy
+        zn = z + dz
+        inb = (
+            (xn >= 0) & (xn < nx) & (yn >= 0) & (yn < ny)
+            & (zn >= 0)[None, :] & (zn < nz)[None, :]
+        )
+        nidx = k[:, None] * ncell + ((xn * ny + yn) * nz + zn)[None, :]
+        nld = kin & inb
+        nmask = plgpu.load(mask_ref.at[nidx], mask=nld, other=0.0)
 
-KC_LO = 8  # slot-block split for the correction kernel: the pair sweep on a
-# plane whose cells all hold <= KC_LO residents runs the (KC_LO x KC_LO)
-# block only — the KC^2 cost of correction_capacity=12 is paid solely by
-# planes that actually reach >8-per-cell compression (dam-break impact
-# fronts), not the whole grid
-
-
-def _correction_kernel(
-    seed_ref,  # (2,) int32 scalar prefetch: [jitter seed, global x origin]
-    occ_ref,  # (nx,) int32 scalar prefetch: 0 empty, 1 lo-only, 2 has-hi
-    ctr_ref,  # VMEM (4KC, 1, ny, nz): pos rows then mask rows, plane i
-    right_ref,  # plane i+1 (clamped)
-    springs_ref,  # VMEM out (3KC, 1, ny, nz): plane-i accumulations
-    springs2_ref,  # VMEM out (3KC, 1, ny, nz): plane-(i+1) side of the
-    #                (i, i+1) pairs, shift-added outside the kernel
-    *,
-    kc: int,
-    re2: float,
-    with_jitter: bool,
-):
-    """Anti-clumping springs for one x-plane of cells (ref
-    ``simulation.cpp:562-610``), with the P2G kernel's tiling and Newton's
-    third law halving the pair sweep: the spring weight w(|xi-xj|) is
-    symmetric, so each unordered pair is evaluated ONCE and accumulated on
-    BOTH endpoints (reduce over each pair axis) — 14 taps (self + 4 mirrored
-    in-plane + 9 against plane i+1) instead of the naive 27. The i+1-side
-    sums land in a second output indexed by plane i and are shifted one
-    plane right outside the kernel. y/z halos are dynamic in-VMEM lane
-    rolls; the compact support (re < h) self-masks roll wrap-around
-    (positions are absolute). Slot ranks are prefix-dense per cell (the
-    slotsort build), so a plane with no rank->=KC_LO residents anywhere (occ
-    flag 1) runs the lo-block sweep only."""
-    i = pl.program_id(0)
-    nplanes = pl.num_programs(0)
-
-    @pl.when(occ_ref[i] == 0)
-    def _():
-        springs_ref[:] = jnp.zeros_like(springs_ref)
-        springs2_ref[:] = jnp.zeros_like(springs2_ref)
-
-    def run(kcur: int):
-        ny, nz = ctr_ref.shape[-2], ctr_ref.shape[-1]
-        res = ctr_ref[:, 0]  # (4KC, ny, nz)
-        res_pos = res[: 3 * kc].reshape(3, kc, ny, nz)[:, :kcur]
-        res_mask = res[3 * kc : 3 * kc + kcur]
-
-        rvalid = (i < nplanes - 1).astype(jnp.float32)
-        rwin = right_ref[:, 0]
-        r_pos = rwin[: 3 * kc].reshape(3, kc, ny, nz)[:, :kcur]
-        r_mask = rwin[3 * kc : 3 * kc + kcur] * rvalid
-
-        zero = jnp.zeros((kcur, ny, nz), jnp.float32)
-
-        # broadcasted_iota, not reshape-of-eye: Mosaic cannot shape-cast
-        # across the tiled dims
-        ri = jax.lax.broadcasted_iota(jnp.int32, (kcur, kcur, 1, 1), 0)
-        ci = jax.lax.broadcasted_iota(jnp.int32, (kcur, kcur, 1, 1), 1)
-        one_minus_eye = (ri != ci).astype(jnp.float32)
-
-        def rollyz(a, shy, shz):
-            return pltpu.roll(
-                pltpu.roll(a, shy, axis=a.ndim - 2), shz, axis=a.ndim - 1
-            )
-
-        def pair_sums(nb_pos, nb_mask, self_mask):
-            """One tap: (w-sum, w*x-sums, coincident count) reduced over
-            BOTH pair axes. *_i reduce over the neighbor axis (the resident
-            side); *_j over the resident axis (the neighbor side, still in
-            center coordinates — the caller rolls them home)."""
-            sq = sum(
-                (res_pos[c][:, None] - nb_pos[c][None, :]) ** 2
+        def pairs(acc):
+            wsum, wx, wy, wz, coin = acc
+            npos = [
+                plgpu.load(pos_ref.at[nidx + c * kc * ncell], mask=nld, other=0.0)
                 for c in range(3)
+            ]
+            sq = sum(
+                (rpos[c][:, None, :] - npos[c][None, :, :]) ** 2 for c in range(3)
             )
-            pair = res_mask[:, None] * nb_mask[None, :]
-            if self_mask:
-                pair = pair * one_minus_eye
+            pair = rmask[:, None, :] * nmask[None, :, :]
+            # d = (0, 0, 0): exclude each slot against itself
+            pair = jnp.where((t == 13) & same_slot, 0.0, pair)
             degenerate = sq < 1e-12
-            kern = jnp.maximum(1.0 - sq * (1.0 / re2), 0.0) ** 3
-            # sqrt + divide, not rsqrt: Mosaic's rsqrt is the ~1e-4
-            # hardware approximation; the jnp oracle's XLA rsqrt is
-            # Newton-refined and parity tests compare the two
-            w = kern / jnp.sqrt(jnp.maximum(sq, 1e-12))
+            kern = jnp.maximum(1.0 - sq * (1.0 / re2), 0.0)
+            w = kern * kern * kern * jax.lax.rsqrt(jnp.maximum(sq, 1e-12))
             w = jnp.where(degenerate, 0.0, w) * pair
-            dg = jnp.where(degenerate, pair, 0.0)
-            ws_i = jnp.sum(w, axis=1)
-            wx_i = tuple(jnp.sum(w * nb_pos[c][None, :], axis=1) for c in range(3))
-            co_i = jnp.sum(dg, axis=1)
-            ws_j = jnp.sum(w, axis=0)
-            wx_j = tuple(jnp.sum(w * res_pos[c][:, None], axis=0) for c in range(3))
-            co_j = jnp.sum(dg, axis=0)
-            return ws_i, wx_i, co_i, ws_j, wx_j, co_j
-
-        # --- self tap: both orderings of every in-cell pair are already in
-        # the full KC x KC tensor — single-sided accumulation ---
-        ws, wx, co, _, _, _ = pair_sums(res_pos, res_mask, self_mask=True)
-        wsum, wnbr, coin = ws, list(wx), co
-
-        # --- 4 mirrored in-plane taps (dy,dz) in {(0,1),(1,-1),(1,0),(1,1)}
-        # = t 5..8; the (-dy,-dz) mirrors are the j-side accumulations ---
-        def tap_c(t, acc):
-            wsum, wnbr, coin = acc
-            wnbr = list(wnbr)
-            dy = t // 3 - 1
-            dz = t % 3 - 1
-            nb_pos = rollyz(res_pos, (-dy) % ny, (-dz) % nz)
-            nb_mask = rollyz(res_mask, (-dy) % ny, (-dz) % nz)
-            ws_i, wx_i, co_i, ws_j, wx_j, co_j = pair_sums(
-                nb_pos, nb_mask, self_mask=False
+            return (
+                wsum + jnp.sum(w, axis=1),
+                wx + jnp.sum(w * npos[0][None, :, :], axis=1),
+                wy + jnp.sum(w * npos[1][None, :, :], axis=1),
+                wz + jnp.sum(w * npos[2][None, :, :], axis=1),
+                coin + jnp.sum(jnp.where(degenerate, pair, 0.0), axis=1),
             )
-            # j-side sums are indexed by center coords; the particle they
-            # belong to sits at (y+dy, z+dz)
-            wsum = wsum + ws_i + rollyz(ws_j, dy % ny, dz % nz)
-            for c in range(3):
-                wnbr[c] = wnbr[c] + wx_i[c] + rollyz(wx_j[c], dy % ny, dz % nz)
-            coin = coin + co_i + rollyz(co_j, dy % ny, dz % nz)
-            return wsum, tuple(wnbr), coin
 
-        wsum, wnbr, coin = jax.lax.fori_loop(
-            5, 9, tap_c, (wsum, tuple(wnbr), coin)
-        )
-        wnbr = list(wnbr)
+        return jax.lax.cond(jnp.max(nmask) > 0.0, pairs, lambda a: a, acc)
 
-        # --- 9 taps against plane i+1; j-side goes to the second output ---
-        wsum2, wnbr2, coin2 = zero, [zero, zero, zero], zero
+    def resident(_):
+        return jax.lax.fori_loop(0, 27, offset, (zeros,) * 5)
 
-        def tap_r(t, acc):
-            wsum, wnbr, coin, wsum2, wnbr2, coin2 = acc
-            wnbr, wnbr2 = list(wnbr), list(wnbr2)
-            dy = t // 3 - 1
-            dz = t % 3 - 1
-            nb_pos = rollyz(r_pos, (-dy) % ny, (-dz) % nz)
-            nb_mask = rollyz(r_mask, (-dy) % ny, (-dz) % nz)
-            ws_i, wx_i, co_i, ws_j, wx_j, co_j = pair_sums(
-                nb_pos, nb_mask, self_mask=False
-            )
-            wsum = wsum + ws_i
-            wsum2 = wsum2 + rollyz(ws_j, dy % ny, dz % nz)
-            for c in range(3):
-                wnbr[c] = wnbr[c] + wx_i[c]
-                wnbr2[c] = wnbr2[c] + rollyz(wx_j[c], dy % ny, dz % nz)
-            coin = coin + co_i
-            coin2 = coin2 + rollyz(co_j, dy % ny, dz % nz)
-            return wsum, tuple(wnbr), coin, wsum2, tuple(wnbr2), coin2
-
-        wsum, wnbr, coin, wsum2, wnbr2, coin2 = jax.lax.fori_loop(
-            0, 9, tap_r,
-            (wsum, tuple(wnbr), coin, wsum2, tuple(wnbr2), coin2),
-        )
-
-        if with_jitter:
-            # deterministic counter-based jitter (jitterhash): hashes the
-            # GLOBAL cell coordinates, so the plane-(i+1) sums accumulated
-            # here (springs2) use the SAME values plane i+1 computes for
-            # itself — and the kernel agrees bit-for-bit with the jnp
-            # oracle and with every sharded/tiled path
-            from libfluid_tpu.sim import jitterhash
-
-            seed = seed_ref[0]
-            gx = i + seed_ref[1]
-            k_i = jax.lax.broadcasted_iota(jnp.int32, (kcur, ny, nz), 0)
-            y_i = jax.lax.broadcasted_iota(jnp.int32, (kcur, ny, nz), 1)
-            z_i = jax.lax.broadcasted_iota(jnp.int32, (kcur, ny, nz), 2)
-
-            def jit_plane(gxv, c):
-                return jitterhash.jitter_value(seed, gxv, y_i, z_i, k_i, c)
-
-        pad = jnp.zeros((kc - kcur, ny, nz), jnp.float32) if kcur < kc else None
-        for c in range(3):
-            out = res_pos[c] * wsum - wnbr[c]
-            out2 = r_pos[c] * wsum2 - wnbr2[c]
-            if with_jitter:
-                out = out + coin * jit_plane(gx, c)
-                out2 = out2 + coin2 * jit_plane(gx + 1, c)
-            springs_ref[c * kc : c * kc + kcur, 0] = out
-            springs2_ref[c * kc : c * kc + kcur, 0] = out2
-            if pad is not None:
-                springs_ref[c * kc + kcur : (c + 1) * kc, 0] = pad
-                springs2_ref[c * kc + kcur : (c + 1) * kc, 0] = pad
-
-    if kc <= KC_LO:
-        @pl.when(occ_ref[i] > 0)
-        def _():
-            run(kc)
-    else:
-        @pl.when(occ_ref[i] == 1)
-        def _():
-            run(KC_LO)
-
-        @pl.when(occ_ref[i] >= 2)
-        def _():
-            run(kc)
+    wsum, wx, wy, wz, coin = jax.lax.cond(
+        jnp.max(rmask) > 0.0, resident, lambda _: (zeros,) * 5, None
+    )
+    for c, wc in enumerate((wx, wy, wz)):
+        plgpu.store(spr_ref.at[ridx + c * kc * ncell], rpos[c] * wsum - wc,
+                    mask=rld)
+    plgpu.store(coin_ref.at[ridx], coin, mask=rld)
 
 
-def correction_springs_pallas(
-    res_pos: jnp.ndarray,  # (3, KC, nx, ny, nz)
-    res_mask: jnp.ndarray,  # (KC, nx, ny, nz)
-    re2,
-    seed: jnp.ndarray,  # () int32
-    cfg: SimConfig,
-    with_jitter: bool = True,
-    origin_x=0,  # global x coordinate of local plane 0 (tiled slabs)
-    interpret: bool = False,  # Pallas interpret mode (CPU tests)
-) -> jnp.ndarray:
-    """Per-slot correction springs incl. coincident-pair jitter; the payload
-    streams from HBM 2x (center + right plane blocks; Newton's-third-law
-    accumulation makes a left block unnecessary — see ``_correction_kernel``)
-    with zero window materialization. Returns (3, KC, nx, ny, nz)."""
+def correction_springs_triton(res_pos, res_mask, re2: float,
+                              interpret: bool = False):
+    """Jitter-free springs (3, KC, nx, ny, nz) and coincident-pair counts
+    (KC, nx, ny, nz) for the resident slots; float32 only.
+    ``interpret=True`` is for the CPU tests."""
     kc = res_pos.shape[1]
-    nx, ny, nz = res_pos.shape[2:]
-
-    payload = jnp.concatenate(
-        [res_pos.reshape(3 * kc, nx, ny, nz), res_mask], axis=0
-    )
-    # halo=0: a plane with no residents has no pairs at all in the
-    # symmetric-accumulation scheme (its (i-1, i) pairs are produced by the
-    # i-1 pass into springs2)
-    occ = plane_occupancy(res_mask, halo=0)
-    if kc > KC_LO:
-        # 0 = empty, 1 = every cell in plane i AND i+1 holds <= KC_LO
-        # residents (pass i touches both planes' slots), 2 = hi slots
-        # present: the kernel sizes its pair sweep accordingly
-        hi_plane = plane_occupancy(res_mask[KC_LO:], halo=0)
-        hi = (hi_plane + jnp.concatenate([hi_plane[1:], hi_plane[:1] * 0])) > 0
-        occ = occ * (1 + hi.astype(jnp.int32))
-
-    def xblock(dx):
-        return pl.BlockSpec(
-            (4 * kc, 1, ny, nz),
-            lambda i, *_: (0, jnp.clip(i + dx, 0, nx - 1), 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    out_spec = pl.BlockSpec(
-        (3 * kc, 1, ny, nz),
-        lambda i, *_: (0, i, 0, 0),
-        memory_space=pltpu.VMEM,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nx,),
-        in_specs=[xblock(0), xblock(1)],
-        out_specs=[out_spec, out_spec],
-    )
-    springs, springs_r = pl.pallas_call(
+    grid_size = tuple(res_pos.shape[2:])
+    check_correction_shape(kc, grid_size)
+    nx, ny, nz = grid_size
+    kp = max(pl.next_power_of_2(kc), 2)
+    tz = min(TILE_Z, max(pl.next_power_of_2(nz), 2))
+    ncell = nx * ny * nz
+    spr, coin = pl.pallas_call(
         functools.partial(
-            _correction_kernel,
-            kc=kc,
+            _springs_kernel, grid_size=grid_size, kc=kc, kp=kp, tz=tz,
             re2=float(re2),
-            with_jitter=with_jitter,
         ),
-        grid_spec=grid_spec,
+        grid=(nx * ny * pl.cdiv(nz, tz),),
         out_shape=[
-            jax.ShapeDtypeStruct((3 * kc, nx, ny, nz), jnp.float32),
-            jax.ShapeDtypeStruct((3 * kc, nx, ny, nz), jnp.float32),
+            jax.ShapeDtypeStruct((3 * kc * ncell,), jnp.float32),
+            jax.ShapeDtypeStruct((kc * ncell,), jnp.float32),
         ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(
-        jnp.stack(
-            [jnp.asarray(seed, jnp.int32), jnp.asarray(origin_x, jnp.int32)]
-        ),
-        occ, payload, payload,
-    )
-    # springs_r[i] holds the plane-(i+1) side of the (i, i+1) pairs
-    springs = springs.at[:, 1:].add(springs_r[:, :-1])
-    return springs.reshape(3, kc, nx, ny, nz)
+        name="correction_springs",
+    )(res_pos.reshape(-1), res_mask.reshape(-1))
+    return spr.reshape(res_pos.shape), coin.reshape(res_mask.shape)

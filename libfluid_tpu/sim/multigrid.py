@@ -2,45 +2,34 @@
 
 The reference preconditions CG with MIC(0) (``pressure_solver.cpp:244-332``)
 — two *sequential* triangular sweeps, unshardable and O(n) serial depth. The
-TPU replacement is a matrix-free geometric V-cycle in the style of McAdams,
+replacement is a matrix-free geometric V-cycle in the style of McAdams,
 Sifakis & Teran 2010 ("A parallel multigrid Poisson solver for fluids
 simulation on large grids"):
 
 - coarsening by 2 with cell-type rediscretization (coarse cell is FLUID if
   any child is fluid, SOLID if all children are solid, else AIR),
 - damped-Jacobi smoothing (order-free stencil, shardable with halos),
-- piecewise-constant prolongation and its (scaled) transpose as restriction,
+- cell-centred trilinear prolongation and its transpose / 8 as restriction,
   equal pre/post smoothing — making the V-cycle a symmetric positive
   operator, as CG requires of its preconditioner,
 - per-level operator scale 4^-l (the 1/h^2 of the rediscretized Laplacian).
 
 Iteration counts at 128^3 drop from ~400 (diagonal) to the tens, and every
-operation inside is a dense masked stencil that tiles onto the VPU.
+operation inside is a dense masked stencil.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import List, NamedTuple, Tuple
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 
 from libfluid_tpu.config import CellType
 
-try:  # pallas imports fail gracefully on backends without Mosaic
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:  # pragma: no cover
-    pl = None
-    pltpu = None
-
 _SMOOTH_DAMP = 0.8  # damped-Jacobi weight
-# r5 on-chip sweep at 128^3: V(2,2) + 12 coarse iters + the separable
-# trilinear transfer operators below = 32.9 ms/solve vs 94.3 ms for the old
-# V(2,2)+24 with reshape/repeat piecewise-constant transfers (whose
-# 6D-reshape reductions XLA laid out catastrophically)
+# V(2,2) + 12 coarse iterations with the separable trilinear transfer
+# operators below
 _PRE_SMOOTH = 2
 _POST_SMOOTH = 2
 _COARSE_ITERS = 12  # Jacobi iterations on the coarsest level
@@ -110,91 +99,8 @@ def build_levels(cell_type: jnp.ndarray, dtype=jnp.float32) -> Tuple[MGLevel, ..
     return tuple(levels)
 
 
-# minimum cells for the fused Pallas stencil (below it, XLA's fusion of the
-# jnp slices is fine and the per-launch overhead isn't worth it)
-_PALLAS_STENCIL_MIN = 1 << 18
-
-
-def _stencil_ok(level: MGLevel) -> bool:
-    return (
-        pl is not None
-        and jax.default_backend() == "tpu"
-        and level.fluid.dtype == jnp.float32
-        and int(np.prod(level.fluid.shape)) >= _PALLAS_STENCIL_MIN
-    )
-
-
-def _stencil_kernel(mode: int, damp: float,
-                    scale_ref, xlo, xmid, xhi, b, diag, inv_diag, fluid,
-                    cu_lo, cu_hi, cv, cw, out):
-    """One x-plane of y = f(A x): mode 0 = A-apply, 1 = damped-Jacobi update,
-    2 = residual b - A x. Blocks are (1, ny, nz); neighbor planes arrive as
-    separately-mapped views of the zero-padded x."""
-    xm = xmid[0] * fluid[0]
-    # x neighbors (the padded views are masked by the boundary couplings);
-    # the neighbor planes are read raw and masked by their own fluid factor
-    # baked into the couplings (couple_* joins fluid pairs only)
-    nbr = cu_lo[0] * xlo[0] + cu_hi[0] * xhi[0]
-    # y neighbors (sublane shifts within the plane)
-    nbr += cv[0, :-1, :] * jnp.pad(xm, ((1, 0), (0, 0)))[:-1]
-    nbr += cv[0, 1:, :] * jnp.pad(xm, ((0, 1), (0, 0)))[1:]
-    # z neighbors (lane shifts within the plane)
-    nbr += cw[0, :, :-1] * jnp.pad(xm, ((0, 0), (1, 0)))[:, :-1]
-    nbr += cw[0, :, 1:] * jnp.pad(xm, ((0, 0), (0, 1)))[:, 1:]
-    ax = scale_ref[0] * (diag[0] * xm - nbr) * fluid[0]
-    if mode == 0:
-        out[0] = ax
-    elif mode == 1:
-        out[0] = xmid[0] + damp * inv_diag[0] * (b[0] - ax)
-    else:
-        out[0] = b[0] - ax
-
-
-def _stencil_pass(level: MGLevel, x, b, mode: int, damp: float = 0.0):
-    """Fused stencil pass y = f(A x) over x-planes (TPU fast path).
-
-    The jnp `apply_level` emits 6 slice-scatter adds XLA won't fuse into one
-    sweep (~10x off HBM bandwidth at 128^3); this kernel reads each operand
-    plane once. `x` neighbor planes are three shifted views of a zero-padded
-    copy (domain-boundary couplings are 0, so the pad value never matters).
-    """
-    nx, ny, nz = level.fluid.shape
-    xp = jnp.pad(x, ((1, 1), (0, 0), (0, 0)))
-    plane = lambda m: pl.BlockSpec(
-        (1, ny, nz), m, memory_space=pltpu.VMEM
-    )
-    scale_arr = jnp.asarray(level.scale, x.dtype).reshape(1)
-    return pl.pallas_call(
-        functools.partial(_stencil_kernel, mode, damp),
-        grid=(nx,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # scale (1,)
-            plane(lambda i: (i, 0, 0)),        # x[i-1] (padded)
-            plane(lambda i: (i + 1, 0, 0)),    # x[i]
-            plane(lambda i: (i + 2, 0, 0)),    # x[i+1]
-            plane(lambda i: (i, 0, 0)),        # b
-            plane(lambda i: (i, 0, 0)),        # diag
-            plane(lambda i: (i, 0, 0)),        # inv_diag
-            plane(lambda i: (i, 0, 0)),        # fluid
-            plane(lambda i: (i, 0, 0)),        # couple_u face i (left)
-            plane(lambda i: (i + 1, 0, 0)),    # couple_u face i+1 (right)
-            pl.BlockSpec((1, ny + 1, nz), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),  # couple_v
-            pl.BlockSpec((1, ny, nz + 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),  # couple_w
-        ],
-        out_specs=plane(lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((nx, ny, nz), x.dtype),
-    )(
-        scale_arr, xp, xp, xp, b, level.diag, level.inv_diag, level.fluid,
-        level.couple_u, level.couple_u, level.couple_v, level.couple_w,
-    )
-
-
 def apply_level(level: MGLevel, p: jnp.ndarray) -> jnp.ndarray:
-    """A_l p — fused Pallas stencil on TPU, static slices elsewhere."""
-    if _stencil_ok(level):
-        return _stencil_pass(level, p, p, mode=0)
+    """A_l p as static-slice adds."""
     p = p * level.fluid
     nbr = jnp.zeros_like(p)
     nbr = nbr.at[1:].add(level.couple_u[1:-1] * p[:-1])
@@ -207,17 +113,11 @@ def apply_level(level: MGLevel, p: jnp.ndarray) -> jnp.ndarray:
 
 
 def residual(level: MGLevel, x: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """(b - A x) * fluid in one fused pass where available."""
-    if _stencil_ok(level):
-        return _stencil_pass(level, x, b, mode=2) * level.fluid
+    """(b - A x) * fluid."""
     return (b - apply_level(level, x)) * level.fluid
 
 
 def _smooth(level: MGLevel, x: jnp.ndarray, b: jnp.ndarray, iters: int) -> jnp.ndarray:
-    if _stencil_ok(level):
-        for _ in range(iters):
-            x = _stencil_pass(level, x, b, mode=1, damp=_SMOOTH_DAMP)
-        return x * level.fluid
     for _ in range(iters):
         r = b - apply_level(level, x)
         x = x + _SMOOTH_DAMP * level.inv_diag * r
@@ -227,9 +127,7 @@ def _smooth(level: MGLevel, x: jnp.ndarray, b: jnp.ndarray, iters: int) -> jnp.n
 # cell-centered trilinear transfer operators (vs the old piecewise-constant
 # repeat/sum): P interpolates, R = P^T / 8 — the V-cycle stays a symmetric
 # operator (CG's requirement) because restriction is the EXACT transpose of
-# prolongation including the edge clamp. Measured on chip at 128^3 this cut
-# pressure.solve 94.3 -> 32.9 ms (the 6D reshape/repeat PC transfers also
-# lowered terribly in XLA).
+# prolongation including the edge clamp.
 
 
 def _interleave(lo: jnp.ndarray, hi: jnp.ndarray, axis: int) -> jnp.ndarray:

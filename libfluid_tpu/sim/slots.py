@@ -1,23 +1,19 @@
-"""Dense per-cell particle slot grid — the TPU-native neighbor structure.
+"""Dense per-cell particle slot grid — the simulator's neighbor structure.
 
 The reference's neighborhood queries (``_for_all_nearby_particles``,
-``simulation.h:212-223``) walk linked per-cell index ranges. On TPU, gathers
-and scatters with millions of independent addresses dominate everything else
-(~10ns per scattered element); the winning layout is a *dense* grid of
-fixed-capacity particle slots built with ONE scatter per substep. Every
-neighborhood consumer (P2G transfers, position correction, the mesher's
-surface sampling) then reads neighbor cells as *statically shifted slices* of
-this array — zero gathers, zero scatters, pure streaming VPU work that XLA
-fuses per offset.
+``simulation.h:212-223``) walk linked per-cell index ranges. Here the layout
+is a *dense* grid of fixed-capacity particle slots built once per substep,
+which avoids scatters and gathers with millions of independent addresses.
+Every neighborhood consumer (P2G transfers, position correction) then reads
+neighbor cells as *statically shifted slices* of this array — streaming work
+that XLA fuses per offset.
 
-Layout (load-bearing for TPU tiling): the payload lives in ONE array
+Layout: the payload lives in ONE array
 
     data: (C, K, nx, ny, nz)     C payload columns, K slots per cell
 
-so the two minor dims are grid axes (ny, nz) and tile onto the (8, 128)
-vector registers without padding. A cell-minor layout like (nx, ny, nz, K, C)
-puts C=16 on the lanes and pads HBM 8x — it OOMs a 128^3 grid. Accordingly
-the per-particle slot index is plane-major: ``slot = rank * num_cells +
+so the minor dims are grid axes and each slot plane is contiguous.
+Accordingly the per-particle slot index is plane-major: ``slot = rank * num_cells +
 cell`` (rank = index within the cell's sorted run).
 
 Payload columns: position xyz (0:3), mask (3), velocity xyz (4:7), APIC

@@ -1,32 +1,19 @@
-"""Fused particle sort + slot-grid build — the TPU fast path.
+"""Fused particle sort + slot-grid build.
 
 Replaces the ``binning.sort_by_cell`` + ``slots.build`` pair (reference
-``hash_particles``, ``simulation.cpp:266-291``, + the TPU-native slot grid)
-whose XLA formulation is gather/scatter-bound: at 128^3 / 2M particles the
-(N, 16) payload row gather costs ~81 ms and the row scatter into the slot
-grid ~221 ms, both at XLA's ~2.5-7 ns/element scatter-gather throughput.
-This module reaches the same state through primitives the TPU is actually
-fast at — ``lax.sort`` (bitonic, ~29 ms for 17 operands at 2M) and a Pallas
-"monotone expand" kernel (~20 ms) — a ~5x cut of the binning+build phase.
+``hash_particles``, ``simulation.cpp:266-291``, + the dense slot grid of
+:mod:`libfluid_tpu.sim.slots`) with two ``lax.sort`` calls and one gather,
+without the (N, 16) row scatter into the slot grid.
 
 The trick is the SECOND sort key: the rank-major slot id ``rank * C + cell``
 (overflow and inactive rows parked past ``K*C`` in stable order). The sorted
 payload is then the slot grid with the gaps (empty slots) squeezed out, in
-exactly slot-grid memory order. Scattering rows into the gaps is a MONOTONE
-EXPANSION — dest lane j reads compacted row S[j] with S non-decreasing — and
-a monotone gather is computable in log2(W) masked lane-shift steps: process
-delta = j - S[j] MSB-first; at bit b every lane with that bit set reads the
-lane 2^b to its left.  Correctness needs exactly (i) delta >= 0,
-(ii) delta non-decreasing, (iii) delta[j] - delta[j-d] <= d — all three hold
-because S (the insertion-position cumsum) is non-decreasing, and they are
-what makes the intermediate lanes carry the right values between steps
-(property-tested against the gather oracle in ``tests/test_slotsort.py``).
-
-Per dest block the source rows are one contiguous window of the sorted
-payload (<= block lanes, because each cell contributes at most one row per
-rank segment), DMA'd HBM->VMEM at a 128-aligned offset with the remainder
-absorbed into delta; an entering slope-1 delta ramp over the alignment pad
-keeps (iii) across the window edge.
+exactly slot-grid memory order. Filling the gaps is a MONOTONE EXPANSION —
+dest lane j reads compacted row S[j] with S non-decreasing, the exclusive
+cumsum of the (K, C) kept-mask — computed as one column gather
+(:func:`_expand_jnp`). Per dest block of ``block`` lanes the source rows are
+one contiguous window of the sorted payload, described by the window start
+``w0`` and the block-relative ``delta = j - S[j]``.
 
 Everything else (counts, ranks, slot ids, expansion deltas) is dense
 arithmetic: ranks come from a running segment cummax, per-slot insertion
@@ -46,76 +33,18 @@ from libfluid_tpu.config import SimConfig, TransferScheme
 from libfluid_tpu.sim.binning import Binning
 from libfluid_tpu.sim.slots import SlotGrid, WIDTH
 
-try:  # pallas imports fail gracefully on backends without Mosaic
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:  # pragma: no cover
-    pl = None
-    pltpu = None
-
-PAD = 128          # DMA window alignment slack (f32 lane tile)
+PAD = 128          # payload column slack past each expansion window
 INV = 1 << 20      # invalid-lane flag bit carried inside the delta word
 _MAX_BLOCK = 16384
 
 
 def _pick_block(num_cells: int) -> int | None:
-    """Largest divisor of C in [512, _MAX_BLOCK] (dest lanes per kernel step)."""
+    """Largest divisor of C in [512, _MAX_BLOCK] (dest lanes per window)."""
     best = None
     for b in range(512, _MAX_BLOCK + 1):
         if num_cells % b == 0:
             best = b
     return best
-
-
-def pallas_ok(cfg: SimConfig) -> bool:
-    return (
-        jax.default_backend() == "tpu"
-        and cfg.dtype == jnp.float32
-        and _pick_block(cfg.num_cells) is not None
-    )
-
-
-def _expand_kernel(w0_ref, delta_ref, pay_hbm, out_ref, a, sem):
-    """One dest block of the monotone expansion (see module docstring)."""
-    b = pl.program_id(0)
-    Wv = a.shape[1]
-    W = out_ref.shape[1]
-    w0a = pl.multiple_of((w0_ref[b] // PAD) * PAD, PAD)
-    dma = pltpu.make_async_copy(pay_hbm.at[:, pl.ds(w0a, Wv)], a, sem)
-    dma.start()
-    raw = delta_ref[:, :]                       # (1, W) block-relative deltas
-    inval = raw >= INV
-    # window coords: dest frame lane (PAD + j) must take src frame lane
-    # S - w0a = (w0 - w0a) + j - raw, i.e. shift right by
-    # PAD + raw - (w0 - w0a). The alignment remainder SUBTRACTS: the DMA
-    # window starts `rem` rows before w0, so sources sit `rem` lanes further
-    # left than the aligned case. (r3 shipped `+ rem`, silently reading rows
-    # 2*rem early in every block whose window start was not 128-aligned —
-    # caught by the r4 on-chip parity test, TPU_PARITY_r04.txt.)
-    dx = (raw & (INV - 1)) - (w0_ref[b] - w0a) + PAD
-    d0 = dx[0, 0]
-    ramp = jnp.maximum(
-        d0 - PAD + jax.lax.broadcasted_iota(jnp.int32, (1, PAD), 1), 0
-    )
-    dfull = jnp.concatenate([ramp, dx], axis=1)             # (1, Wv)
-    tfull = jnp.concatenate(
-        [jnp.zeros((1, PAD), bool), jnp.logical_not(inval)], axis=1
-    )
-    dma.wait()
-    x = a[:, :]
-    nbits = max(1, (Wv - 1).bit_length())
-    for bit in reversed(range(nbits)):
-        sh = 1 << bit
-        if sh >= Wv:
-            continue
-        take = ((dfull >> bit) & 1) == 1
-        shifted = jnp.concatenate(
-            [jnp.zeros((x.shape[0], sh), x.dtype), x[:, : Wv - sh]], axis=1
-        )
-        x = jnp.where(take, shifted, x)
-        dfull = dfull - jnp.where(take, sh, 0)
-    x = jnp.where(tfull, x, 0.0)
-    out_ref[:, :] = x[:, PAD:]
 
 
 def _src_of(delta: jnp.ndarray, w0: jnp.ndarray, block: int):
@@ -129,42 +58,17 @@ def _src_of(delta: jnp.ndarray, w0: jnp.ndarray, block: int):
 
 
 def _expand_jnp(payT: jnp.ndarray, delta: jnp.ndarray, w0, block: int) -> jnp.ndarray:
-    """Gather oracle of the expansion."""
+    """The expansion as one column gather of the sorted payload."""
     src, valid = _src_of(delta, w0, block)
     src = jnp.clip(src, 0, payT.shape[1] - 1)
     return jnp.take(payT, src, axis=1) * valid[None, :].astype(payT.dtype)
 
 
-def _expand_impl(payT, delta, w0, block: int):
-    if pl is None or jax.default_backend() != "tpu" or block > _MAX_BLOCK:
-        return _expand_jnp(payT, delta, w0, block)
-    d = delta.shape[0]
-    nblocks = d // block
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec((1, block), lambda b, w0: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (payT.shape[0], block), lambda b, w0: (0, b), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((payT.shape[0], block + PAD), payT.dtype),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    return pl.pallas_call(
-        _expand_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((payT.shape[0], d), payT.dtype),
-    )(w0, delta.reshape(1, -1), payT)
-
-
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
 def _expand(payT, delta, w0, block: int):
-    return _expand_impl(payT, delta, w0, block)
+    """The monotone expansion as one gather, with an explicit scatter-add
+    backward (the gather's transpose, without XLA's generic gather VJP)."""
+    return _expand_jnp(payT, delta, w0, block)
 
 
 def _expand_fwd(payT, delta, w0, block):

@@ -124,8 +124,8 @@ def substep(state: SimState, cfg: SimConfig, dt) -> Tuple[SimState, Diagnostics]
     # --- sources + binning + slot grid in one fused pass: the particle SoA
     # is physically sorted into rank-major slot order (the reference sorts by
     # cell, simulation.cpp:266 — any order works) and the dense cell-slot
-    # grid every neighborhood pass shares is built by the Pallas monotone-
-    # expand kernel instead of an XLA row scatter (slotsort.py docstring) ---
+    # grid every neighborhood pass shares is built by one monotone-expansion
+    # gather instead of a row scatter (slotsort.py docstring) ---
     sb = slotsort.sort_and_build(state, cfg)
     if state.sources.cells.shape[0] > 0:  # static: re-bin only if seeding ran
         state = sources_mod.seed_sources(sb.state, sb.bins.occupancy, cfg)

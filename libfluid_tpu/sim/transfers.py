@@ -6,7 +6,7 @@ particle neighborhood per face; here each particle *scatters* its 8 trilinear
 (hat-kernel, ``simulation.cpp:207-213``) contributions per face array with a
 weight accumulator, and faces normalize by total weight — the identical
 weighted average, expressed as batched scatter-adds that XLA lowers to sorted
-segment reductions on TPU, and that are differentiable by construction
+segment reductions, and that are differentiable by construction
 (scatter-add transposes to gather).
 
 Weights are always computed in cell units. (The reference's APIC P2G evaluates
@@ -16,7 +16,6 @@ when cell_size == 1; the normalized form here is the intended one.)
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
@@ -80,7 +79,7 @@ def _p2g_axis(
         # Masked contributions are routed OUT of bounds and dropped, not
         # clipped to a shared valid address: inactive particles all sit at the
         # same position, and millions of zero-weight duplicates on one scatter
-        # address serialize the whole scatter on TPU (~100x slowdown).
+        # address serialize the whole scatter.
         flat = jnp.where(inb, flat, num.shape[0])
         num = num.at[flat].add(w * val, mode="drop")
         den = den.at[flat].add(w, mode="drop")
@@ -137,13 +136,9 @@ def _stacked_shifts(arr: jnp.ndarray, offsets, axis: int) -> jnp.ndarray:
     """(len(offsets), num_cells) table: row t holds arr[cell + offsets[t]]
     with zero padding outside the face array (out-of-bounds face samples
     contribute 0, like the reference's boundary clamp ``mac_grid.cpp:51-112``).
-    Static slices only — no gather.
-
-    Layout is load-bearing: stacking on a NEW MAJOR axis keeps the grid dims
-    minor, so every slice tiles T(8,128) with no padding. Stacking on a minor
-    axis (the round-1 bug) materialized each slice as f32[C,1] padded 128x —
-    ~20 GB of HLO temps at 128^3 (BENCH_r01). The single (54, C) -> (C, 54)
-    transpose happens once, downstream, where XLA tiles it efficiently."""
+    Static slices only — no gather. Stacking on a new MAJOR axis keeps the
+    grid dims minor; the single (64, C) -> (C, 64) transpose happens once,
+    downstream."""
     pads = [(1, 1)] * 3
     pads[axis] = (0, 0)  # face-axis offsets {0,1} are always in bounds
     padded = jnp.pad(arr, pads)
@@ -155,39 +150,6 @@ def _stacked_shifts(arr: jnp.ndarray, offsets, axis: int) -> jnp.ndarray:
             jax.lax.dynamic_slice(padded, start, (nx, ny, nz))
         )
     return jnp.stack(cols, axis=0).reshape(len(offsets), nx * ny * nz)
-
-
-def _transpose_major(table: jnp.ndarray) -> jnp.ndarray:
-    """(R, C) -> (C, R) as an explicit tiled Pallas transpose (TPU only).
-
-    Exists purely to pin layouts: both operand and result get their natural
-    row-major tiling, so neither the upstream concatenate nor the downstream
-    row gather can force a padded layout onto the other. On CPU (tests) the
-    plain transpose is fine."""
-    if jax.default_backend() != "tpu":
-        return table.T
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    r, c = table.shape
-    tile = 8192
-    if c % tile != 0:  # small grids: temps are small, XLA's choice is fine
-        return table.T
-
-    def kernel(in_ref, out_ref):
-        out_ref[:] = in_ref[:].T
-
-    return pl.pallas_call(
-        kernel,
-        grid=(c // tile,),
-        in_specs=[
-            pl.BlockSpec((r, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (tile, r), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((c, r), table.dtype),
-    )(table)
 
 
 def _face_axes_of_offset(d):
@@ -235,9 +197,8 @@ def p2g_slots(
     but with the scatter turned inside out: every face f = c + d accumulates
     the kernel-weighted momentum of cell c's K slots for the 18 cell-relative
     offsets d in its staggered support, as statically shifted dense adds — no
-    scatter at all. On TPU the 27-offset pass runs as one fused Pallas kernel
-    (the payload streams from HBM once, ``kernels.p2g_lo_faces_pallas``);
-    elsewhere, and for the VJP, the jnp oracle is the semantic reference.
+    scatter at all (:func:`_p2g_slots_jnp`, one fused XLA pass per
+    (offset, axis) pair).
 
     Particles past the per-cell slot capacity ("overflow", rank >= K —
     transient compression in splashes) are NOT dropped: up to
@@ -252,7 +213,7 @@ def p2g_slots(
     `position/velocity/affine/active` are the CELL-SORTED particle arrays the
     slot grid was built from.
     """
-    num, den = _p2g_data(slot_grid.data, cfg)
+    num, den = _p2g_slots_jnp(slot_grid.data, cfg)
     num, den = list(num), list(den)
 
     n = position.shape[0]
@@ -289,7 +250,8 @@ def p2g_slots(
 
 
 def _p2g_slots_jnp(data, cfg: SimConfig):
-    """The pure-jnp oracle: one fused XLA pass per (offset, axis) pair."""
+    """Unnormalized (num[3], den[3]) face accumulators from the slot grid:
+    one fused XLA pass per (offset, axis) pair."""
     from libfluid_tpu.sim import slots as slots_mod
 
     slot_grid = slots_mod.SlotGrid(data=data, slot_of=None, overflow=None)
@@ -347,7 +309,7 @@ def _p2g_slots_jnp(data, cfg: SimConfig):
 def _p2g_hi_plane(data, cfg: SimConfig, axis: int):
     """The far boundary face plane (f_axis = n_axis), fed only by the last
     cell slab (b_axis = n_axis - 1) over the 9 transverse offsets. Completes
-    the Pallas kernel's lo-face arrays. Returns unnormalized (num, den)."""
+    the slab-tiled substep's lo-face arrays. Returns unnormalized (num, den)."""
     use_affine = cfg.scheme == TransferScheme.APIC
     k = data.shape[1]
     h = cfg.cell_size
@@ -405,49 +367,6 @@ def _p2g_hi_plane(data, cfg: SimConfig, axis: int):
     return num, den
 
 
-def _p2g_data_impl(data, cfg: SimConfig):
-    """Unnormalized (num[3], den[3]) face accumulators from the slot grid."""
-    from libfluid_tpu.sim import kernels
-
-    if kernels.pallas_ok(cfg):
-        use_affine = cfg.scheme == TransferScheme.APIC
-        lo = kernels.p2g_lo_faces_pallas(data, cfg, use_affine)
-        nums, dens = [], []
-        for axis in range(3):
-            hn, hd = _p2g_hi_plane(data, cfg, axis)
-            nums.append(
-                jnp.concatenate(
-                    [lo[axis], jnp.expand_dims(hn, axis)], axis=axis
-                )
-            )
-            dens.append(
-                jnp.concatenate(
-                    [lo[3 + axis], jnp.expand_dims(hd, axis)], axis=axis
-                )
-            )
-        return tuple(nums), tuple(dens)
-    return _p2g_slots_jnp(data, cfg)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
-def _p2g_data(data, cfg: SimConfig):
-    return _p2g_data_impl(data, cfg)
-
-
-def _p2g_fwd(data, cfg: SimConfig):
-    return _p2g_data(data, cfg), (data,)
-
-
-def _p2g_bwd(cfg: SimConfig, residuals, g):
-    (data,) = residuals
-    _, vjp = jax.vjp(lambda d: _p2g_slots_jnp(d, cfg), data)
-    (dd,) = vjp(g)
-    return (dd,)
-
-
-_p2g_data.defvjp(_p2g_fwd, _p2g_bwd)
-
-
 def g2p_pic(
     grid: grids.MacGrid, position: jnp.ndarray, cfg: SimConfig
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -455,15 +374,12 @@ def g2p_pic(
     matrix (rows = gradients of each component). Reference
     ``simulation.cpp:447-560``.
 
-    TPU formulation: instead of 8 per-element gathers per axis (one gather
-    descriptor per sample — the dominant cost), ONE (C, 64) table holds the
+    Instead of 8 per-element gathers per axis, ONE (C, 64) table holds the
     statically-shifted face arrays of all 3 axes' 18 cell-relative offsets
-    (54 columns, zero-padded to 64) indexed by CELL id, and ONE row gather per
-    particle fetches all 54 samples; weights/gradients are evaluated on the
-    VPU (zero for offsets outside the hat support). The 64-column padding is
-    load-bearing: power-of-two 256-byte rows gather ~4x faster than 72-byte
-    rows on TPU, and one fused gather beats three per-axis ones ~6x again
-    (measured at 2M particles / 128^3).
+    (54 columns, zero-padded to 64 for aligned 256-byte rows) indexed by CELL
+    id, and ONE row gather per particle fetches all 54 samples;
+    weights/gradients are evaluated elementwise (zero for offsets outside
+    the hat support).
     """
     table = build_g2p_table(grid, cfg)
     return g2p_from_table(table, position, cfg)
@@ -479,59 +395,22 @@ def build_g2p_table(grid: grids.MacGrid, cfg: SimConfig) -> jnp.ndarray:
     num_cells = tables[0].shape[1]
     table = jnp.concatenate(
         tables + [jnp.zeros((64 - 54, num_cells), cfg.dtype)], axis=0
-    )  # (64, C) — grid dim minor, zero tile padding
-    # ONE (64, C) -> (C, 64) transpose, forced into a Pallas kernel so the
-    # (64, C) operand keeps its natural layout. Left to XLA, layout
-    # assignment bitcasts the transpose and pushes the layout change up into
-    # the concatenate, copying every slice as f32[1,C] with 128x lane padding
-    # (~20 GB of HLO temps at 128^3 — the round-1 OOM, BENCH_r01).
-    return _transpose_major(table)  # (C, 64); rows 256B-aligned
-
-
-# toggle for the (18, N)-layout G2P weight evaluation (benchmark A/B switch)
-_G2P_MAJOR_LAYOUT = True
-
-
-def _transpose_rows(x: jnp.ndarray) -> jnp.ndarray:
-    """(N, k) -> (k, N) blocked over N (the mirror of `_transpose_major` for
-    tall-skinny operands; XLA's choice on CPU / odd sizes)."""
-    if jax.default_backend() != "tpu":
-        return x.T
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, k = x.shape
-    tile = 8192
-    if n % tile != 0:
-        return x.T
-
-    def kernel(in_ref, out_ref):
-        out_ref[:] = in_ref[:].T
-
-    return pl.pallas_call(
-        kernel,
-        grid=(n // tile,),
-        in_specs=[
-            pl.BlockSpec((tile, k), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (k, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((k, n), x.dtype),
-    )(x)
+    )  # (64, C) — grid dim minor
+    return table.T  # (C, 64); rows 256B-aligned
 
 
 def _g2p_weights_major(samples_T, position, cell3c, cfg: SimConfig):
-    """Weight/gradient evaluation in (18, N) layout — lanes along particles.
+    """Weight/gradient evaluation in (18, N) layout — particles minor.
 
-    The (N, 18)-shaped formulation below lane-pads 18 -> 128 on every temp
-    (7x HBM waste; measured 44 ms of the 75 ms g2p_from_table at 128^3 —
-    the weights, not the gather, dominated). Here every temp is (k, N) with
-    the huge axis minor, so tiles are full. The hat-weight is separable,
+    Every temp is (k, N) with the huge axis minor. The hat-weight is separable,
     w = wx (x) wy (x) wz, so the per-space-axis factors (2 or 3 rows each)
     are built once and combined per sample; the gradient substitutes the
-    derivative factor one axis at a time. Identical support/sign semantics
-    to the (N, 18) path (half-open [-1, 1), one-sided kink)."""
+    derivative factor one axis at a time (reference ``_grad_kernel``,
+    ``simulation.cpp:215-224``), zeroed outside the support so far offsets
+    contribute exactly 0. Support is the HALF-OPEN [-1, 1): the reference
+    samples offsets {0,1} from floor(coords), so d = frac - off hits -1
+    (kink included one-sidedly) but never +1 — particles exactly on faces
+    reproduce bit-for-bit."""
     n = position.shape[0]
     h = cfg.cell_size
     posT = position.T  # (3, N)
@@ -597,48 +476,14 @@ def _g2p_weights_major(samples_T, position, cell3c, cfg: SimConfig):
 def g2p_from_table(
     table: jnp.ndarray, position: jnp.ndarray, cfg: SimConfig
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-particle velocity + APIC affine from a prebuilt sample table."""
+    """Per-particle velocity + APIC affine from a prebuilt sample table:
+    ONE (N, 64) row gather, then the weights in (18, N) layout."""
     cell3 = grids.cell_index_of(position, cfg)
     dims = jnp.asarray(cfg.grid_size, jnp.int32)
     cell3c = jnp.clip(cell3, 0, dims - 1)
     cell_flat = grids.flat_cell_index(cell3c, cfg)  # C order = table row order
-    samples_all = table[cell_flat]  # (N, 64) ONE aligned row gather
-
-    n = position.shape[0]
-    if _G2P_MAJOR_LAYOUT and jax.default_backend() == "tpu" and n % 8192 == 0:
-        samples_T = _transpose_rows(samples_all)  # (64, N)
-        return _g2p_weights_major(samples_T, position, cell3c, cfg)
-
-    vals = []
-    rows_out = []
-    for axis in range(3):
-        offsets = _cell_offsets(axis)
-        samples = samples_all[:, 18 * axis : 18 * (axis + 1)]  # (N, 18)
-        coords = grids.face_index_coords(position, cfg, axis)
-        f = cell3c[:, None, :] + jnp.asarray(offsets, jnp.int32)[None]  # (N,18,3)
-        d = coords[:, None, :] - f.astype(cfg.dtype)
-        n = jnp.maximum(1.0 - jnp.abs(d), 0.0)
-        w = jnp.prod(n, axis=-1)  # (N, 18)
-        vals.append(jnp.sum(w * samples, axis=-1))
-        # grad of the trilinear weight (reference _grad_kernel,
-        # simulation.cpp:215-224), with the derivative factor zeroed outside
-        # the support so far offsets contribute exactly 0. Support is the
-        # HALF-OPEN [-1, 1): the reference samples offsets {0,1} from
-        # floor(coords), so d = frac - off hits -1 (kink included one-sidedly)
-        # but never +1 — particles exactly on faces reproduce bit-for-bit.
-        s = jnp.where(
-            (d >= -1.0) & (d < 1.0), jnp.where(d > 0.0, -1.0, 1.0), 0.0
-        )
-        g = jnp.stack(
-            [
-                s[..., 0] * n[..., 1] * n[..., 2],
-                n[..., 0] * s[..., 1] * n[..., 2],
-                n[..., 0] * n[..., 1] * s[..., 2],
-            ],
-            axis=-1,
-        ) / cfg.cell_size  # (N, 18, 3)
-        rows_out.append(jnp.sum(g * samples[..., None], axis=1))
-    return jnp.stack(vals, axis=-1), jnp.stack(rows_out, axis=-2)
+    samples_all = table[cell_flat]  # (N, 64)
+    return _g2p_weights_major(samples_all.T, position, cell3c, cfg)
 
 
 def g2p_flip(

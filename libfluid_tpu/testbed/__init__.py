@@ -3,7 +3,7 @@
 The reference testbed (``testbed/main.cpp``) is an OpenGL app with five canned
 simulation setups selected by keys 9..5 (``main.cpp:137-179``), a mesher thread
 (``main.cpp:203-232``), a progressive BDPT preview, and export hooks (F3/F4/F5:
-mesh.obj / points.txt / test.ppm, ``main.cpp:328-347,429-453``). On TPU there is
+mesh.obj / points.txt / test.ppm, ``main.cpp:328-347,429-453``). Here there is
 no GL window; this module reproduces everything else headlessly:
 
 - :func:`build_setup` — the five scenarios with the reference's exact

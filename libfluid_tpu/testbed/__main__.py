@@ -8,8 +8,8 @@ Reproduces the reference testbed's frame loop (``testbed/main.cpp:125-197``:
 Examples:
     python -m libfluid_tpu.testbed --setup 0 --frames 60
     python -m libfluid_tpu.testbed --setup 2 --frames 10 --mesh-every 5 \
-        --render-every 5 --out /tmp/tb
-    python -m libfluid_tpu.testbed --scene cornell1 --offline-render --out /tmp/tb
+        --render-every 5 --out out/tb
+    python -m libfluid_tpu.testbed --scene cornell1 --offline-render --out out/tb
 """
 
 from __future__ import annotations

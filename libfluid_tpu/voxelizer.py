@@ -13,7 +13,7 @@ Replaces the reference's ``voxelizer`` (``voxelizer.h/.cpp``) and ``obstacle``
   *interior*. An obstacle contributes its interior cells to the sim's solid
   mask (``obstacle.cpp:20-28``).
 
-TPU formulation: the reference's per-triangle serial scan over candidate
+Formulation: the reference's per-triangle serial scan over candidate
 cells becomes a vmap over (triangle x static candidate block) with a
 scatter-OR, and the stack-based flood fill becomes a ``lax.while_loop`` of
 6-neighbor dilations masked by ~surface — order-free stencils instead of a

@@ -4,14 +4,14 @@
 // runs a simulation thread, a mesher thread and a render thread joined by
 // mutexes and a semaphore (testbed/main.cpp:34-48,200-232,529-532), and the
 // Maya plugin serializes frames on the DG thread (grid_node.cpp:228-375).
-// The TPU port keeps compute on-device, but the host side still needs the
+// This port keeps compute on the device, but the host side still needs the
 // same thing those threads provided: getting frames OFF the critical path.
 // This library supplies that runtime:
 //
 //   * an asynchronous export pool — a worker-thread job queue that serializes
 //     point clouds (points.txt, point_cloud.h:15-37), triangle meshes
 //     (mesh::save_obj, mesh.h:56-99) and PPM images (image::save_ppm,
-//     common.h:67-79) while the Python thread returns to dispatching TPU work;
+//     common.h:67-79) while the Python thread returns to dispatching device work;
 //   * mesh finalization — vertex welding (replacing the reference mesher's
 //     serial rolling edge caches, mesher.cpp:394-407) and area-weighted
 //     normal generation (mesh::generate_normals, mesh.h:38-53) at native

@@ -1,7 +1,7 @@
 """Position-correction springs: resident pass + compacted overflow pass.
 
 Reference ``_correct_positions`` (``simulation.cpp:562-610``) caps nothing;
-the TPU dense pass caps residents at ``correction_capacity`` and VERDICT r2
+the dense pass caps residents at ``correction_capacity`` and VERDICT r2
 weak #4 flagged that truncated particles silently got no spring. These tests
 pin the overflow pass that closes it."""
 

@@ -118,7 +118,7 @@ def test_p2g_weights_drop_out_of_bounds():
 
 def test_g2p_is_adjoint_of_trilerp_gather():
     """<scatter(x), g> == <x, gather(g)> for the unnormalized kernel weights —
-    the structural adjointness the custom Pallas kernels must preserve."""
+    the structural adjointness any custom kernel must preserve."""
     cfg = _cfg(scheme=TransferScheme.PIC)
     pos, active = _random_particles(cfg, 64)
     key = jax.random.PRNGKey(3)
